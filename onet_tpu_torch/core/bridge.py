@@ -8,6 +8,9 @@
 * ``import_torch_state``: the reference ``state_dict`` schema (``topu.*`` /
   ``dwnu.*``, OIHW; ``onet_tpu/core/torch_import.py``), so reference
   ``.pytorch`` weights serve too.
+* ``adam_state_from_jax``: the JAX ``adam_init``/``adam_update`` state
+  (optax's count, mu, nu, as numpy) to the port's Adam state, so a run can
+  start both frameworks from the same params, BN state and optimizer state.
 
 Every loader puts the tensors on ``device``: the card by default, raising
 without one.
@@ -35,6 +38,17 @@ def from_jax_numpy(params, state, device=None):
     dev = resolve_device(device)
     conv = lambda a: _tensor(a, dev)   # noqa: E731
     return tree_map(conv, params), tree_map(conv, state)
+
+
+def adam_state_from_jax(count, mu, nu, device=None):
+    """optax ``ScaleByAdamState`` fields (count: int scalar; mu, nu: trees
+    like the params, numpy or array-like leaves) -> the port's Adam state
+    on ``device`` (``train/optim.py``)."""
+    dev = resolve_device(device)
+    conv = lambda a: _tensor(a, dev)   # noqa: E731
+    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                                  device=dev),
+            "mu": tree_map(conv, mu), "nu": tree_map(conv, nu)}
 
 
 # ---------------------------------------------------------------------------

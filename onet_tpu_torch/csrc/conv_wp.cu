@@ -1,10 +1,12 @@
-// Pair-packed SAME 3x3 convolution with the serving epilogue, for sm_90a.
+// Pair-packed SAME 3x3 convolution with its two epilogues, for sm_90a.
 //
 // Replaces the Pallas kernels of onet_tpu/ops/pallas_conv.py:
 //   _fwd_kernel  (via conv3x3_wp_raw)   y = conv(x, w)
 //   _fwd2_kernel (via conv3x3_wp2_raw)  y = conv(xa, wa) + conv(xb, wb)
-// each with the optional bias+ReLU store epilogue. The BatchNorm-stats
-// epilogue is not here: the Python wrapper refuses stats=True on the card.
+// each with the optional bias+ReLU store epilogue (serving) and the optional
+// BatchNorm-statistics epilogue (training): per-sample lane sums s1, s2
+// [n][128] of the f32 value after bias/ReLU and before the cast, lane
+// (w%2)*64 + c, taken from the accumulator so no pass re-reads y.
 //
 // Layout. The packed tensor [N, H, W/2, 128] (lane = (w%2)*64 + c) is, byte
 // for byte, the per-branch NHWC tensor [N, H, W, 64]. The TPU kernel needed
@@ -36,6 +38,18 @@
 // synchronous 16-byte loads, not cp.async or TMA, and there is one CTA per SM:
 // load and compute do not overlap. That, and wgmma, are later work.
 //
+// Statistics across CTAs. The TPU kernel carried s1/s2 from one grid step to
+// the next; here a sample's tiles (1024 at 512x512) land on many CTAs in no
+// order. Each tile reduces its own 256 pixels in the epilogue: every lane
+// sums one channel column of the fragment scratch over the rows of one
+// parity (the per-warp scratch pass already visits every fragment), the
+// 8 warps meet in shared memory, and the tile writes its [256] partial
+// (s1 lanes, then s2 lanes) to a [tiles][256] f32 buffer. A second kernel,
+// stats_reduce, sums each sample's partials in a fixed order. Chosen over
+// atomicAdd because the result is then deterministic: the same inputs give
+// the same bits, run to run. Cost: 1 KB written and read back per tile,
+// 16 MB at N=16, 512x512, against 537 MB of bf16 output.
+//
 // f32 inputs take a CUDA-core path (one thread per output pixel, 64 f32
 // accumulators, weights read through the read-only cache): it exists for the
 // float32 policy's exactness, not for speed.
@@ -61,14 +75,17 @@ constexpr int XS_F = 68;          // f32 window pixel stride (elements)
 constexpr int W_BYTES_B = 9 * C * WS_B * 2;            // one input's taps
 constexpr int X_BYTES_B = SROWS * SCOLS * XS_B * 2;    // bf16 window
 constexpr int X_BYTES_F = SROWS * SCOLS * XS_F * 4;    // f32 window
+constexpr int NSTAT = 4 * C;                           // s1 lanes, s2 lanes
+constexpr int RED_BYTES = TH * NSTAT * 4;              // per-warp partials
 
 struct Args {
   const void* x[2];     // inputs, NHWC [n, h, w, 64]
   const void* taps[2];  // [3][3][64][64] HWIO, inputs' dtype
   const float* bias;    // [128] packed lanes (parity * 64 + c)
   void* y;              // NHWC [n, h, w, 64]
+  float* part;          // [tiles][256] per-tile stats partials (stats only)
   int n, h, w;          // unpacked geometry: w = 2 * Wp
-  int nin, relu, out_bf16;
+  int nin, relu, out_bf16, stats;
 };
 
 struct Tile {
@@ -123,6 +140,17 @@ __device__ __forceinline__ void store8(void* y, size_t off, const float* v,
   }
 }
 
+// The 8 warps' [256] partials in `red` -> one tile partial, summed in warp
+// order. Call with every thread of the CTA after the warps wrote `red`.
+__device__ __forceinline__ void tile_stats(const float* red, float* part,
+                                           long tile) {
+  __syncthreads();
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < TH; ++k) v += red[k * NSTAT + threadIdx.x];
+  part[tile * NSTAT + threadIdx.x] = v;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: WMMA on the tensor cores
 // ---------------------------------------------------------------------------
@@ -139,6 +167,7 @@ conv_wp_bf16(const Args a) {
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* xs =
       reinterpret_cast<__nv_bfloat16*>(smem + a.nin * W_BYTES_B);
+  float* red = reinterpret_cast<float*>(smem + a.nin * W_BYTES_B + X_BYTES_B);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // taps of every input, once per CTA: [in][tap][ci][co], rows padded to WS_B
@@ -195,6 +224,10 @@ conv_wp_bf16(const Args a) {
     float* scratch = reinterpret_cast<float*>(xs) + warp * 256;
     const int r = t.r0 + warp;
     const int i = lane >> 1, j0 = (lane & 1) * 8;
+    // stats: lane (sc, sp) sums column sc over the fragment rows (pixels)
+    // of parity sp; c0 and m*16 are even, so a row's parity is its own
+    const int sc = lane & 15, sp = lane >> 4;
+    float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
@@ -212,8 +245,28 @@ conv_wp_bf16(const Args a) {
           store8(a.y, (((size_t)t.b * a.h + r) * a.w + col) * C + co, v,
                  a.out_bf16);
         }
+        if (a.stats) {
+          const float bs = a.bias[sp * C + nn * 16 + sc];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int ii = 2 * q + sp;
+            if (r < a.h && t.c0 + m * 16 + ii < a.w) {
+              const float v = epilogue(scratch[ii * 16 + sc], bs, a.relu);
+              s1[nn] += v;
+              s2[nn] += v * v;
+            }
+          }
+        }
         __syncwarp();
       }
+    }
+    if (a.stats) {
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        red[warp * NSTAT + sp * C + nn * 16 + sc] = s1[nn];
+        red[warp * NSTAT + 2 * C + sp * C + nn * 16 + sc] = s2[nn];
+      }
+      tile_stats(red, a.part, tile);
     }
     __syncthreads();     // scratch (the window) is reloaded by the next tile
   }
@@ -227,6 +280,7 @@ __global__ void __launch_bounds__(THREADS)
 conv_wp_f32(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);
+  float* red = reinterpret_cast<float*>(smem + X_BYTES_F);
   const int row = threadIdx.x / TW, px = threadIdx.x % TW;
 
   const long tiles = (long)a.n * ((a.h + TH - 1) / TH) * ((a.w + TW - 1) / TW);
@@ -268,17 +322,57 @@ conv_wp_f32(const Args a) {
     }
 
     const int r = t.r0 + row, col = t.c0 + px;
-    if (r < a.h && col < a.w) {
+    const bool inside = r < a.h && col < a.w;
+    const float* bp = a.bias + (col & 1) * C;
+#pragma unroll
+    for (int o = 0; o < C; ++o) acc[o] = epilogue(acc[o], bp[o], a.relu);
+    if (inside) {
       const size_t base = (((size_t)t.b * a.h + r) * a.w + col) * C;
-      const float* bp = a.bias + (col & 1) * C;
 #pragma unroll
-      for (int o = 0; o < C; o += 8) {
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = epilogue(acc[o + j], bp[o + j], a.relu);
-        store8(a.y, base + o, v, a.out_bf16);
-      }
+      for (int o = 0; o < C; o += 8) store8(a.y, base + o, acc + o, a.out_bf16);
     }
+    if (a.stats) {
+      // lanes of one parity (px & 1; c0 is even) meet by butterfly; lanes
+      // 0 and 1 then hold the row's parity-0 and parity-1 sums
+      const int lane = threadIdx.x % 32;
+#pragma unroll
+      for (int o = 0; o < C; ++o) {
+        float v1 = inside ? acc[o] : 0.f;
+        float v2 = v1 * v1;
+#pragma unroll
+        for (int d = 2; d < 32; d <<= 1) {
+          v1 += __shfl_xor_sync(0xffffffffu, v1, d);
+          v2 += __shfl_xor_sync(0xffffffffu, v2, d);
+        }
+        if (lane < 2) {
+          red[row * NSTAT + lane * C + o] = v1;
+          red[row * NSTAT + 2 * C + lane * C + o] = v2;
+        }
+      }
+      tile_stats(red, a.part, tile);
+      __syncthreads();   // red is rewritten by the next tile
+    }
+  }
+}
+
+// Per-sample sums of the tile partials, in tile order (deterministic).
+// grid (n, NSTAT / 32), 256 threads: 8 phases of 32 values each.
+__global__ void __launch_bounds__(THREADS)
+stats_reduce(const float* __restrict__ part, float* s1, float* s2, int tps) {
+  __shared__ float ph_sum[8][32];
+  const int lane = threadIdx.x % 32, ph = threadIdx.x / 32;
+  const int v = blockIdx.y * 32 + lane;
+  const float* p = part + (size_t)blockIdx.x * tps * NSTAT + v;
+  float acc = 0.f;
+  for (int t = ph; t < tps; t += 8) acc += p[(size_t)t * NSTAT];
+  ph_sum[ph][lane] = acc;
+  __syncthreads();
+  if (ph == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += ph_sum[k][lane];
+    float* out = v < 2 * C ? s1 : s2;
+    out[(size_t)blockIdx.x * 2 * C + (v % (2 * C))] = s;
   }
 }
 
@@ -286,11 +380,14 @@ conv_wp_f32(const Args a) {
 
 // Launch on `stream`; returns the CUDA error code (0 on success). Pointers
 // must be 16-byte aligned and the tensors contiguous; the wrapper checks.
+// With stats, `part` holds n * ceil(h/8) * ceil(w/32) * 256 floats of
+// scratch and s1, s2 receive [n][128] each.
 extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
                                const void* wa, const void* wb,
-                               const float* bias, void* y, int n, int h,
-                               int w, int nin, int in_bf16, int out_bf16,
-                               int relu, void* stream) {
+                               const float* bias, void* y, float* part,
+                               float* s1, float* s2, int n, int h, int w,
+                               int nin, int in_bf16, int out_bf16, int relu,
+                               int stats, void* stream) {
   if (nin < 1 || nin > 2) return (int)cudaErrorInvalidValue;
   Args a;
   a.x[0] = xa;
@@ -299,15 +396,18 @@ extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
   a.taps[1] = wb;
   a.bias = bias;
   a.y = y;
+  a.part = part;
   a.n = n;
   a.h = h;
   a.w = w;
   a.nin = nin;
   a.relu = relu;
   a.out_bf16 = out_bf16;
+  a.stats = stats;
 
   void (*kern)(const Args) = in_bf16 ? conv_wp_bf16 : conv_wp_f32;
-  const int smem = in_bf16 ? nin * W_BYTES_B + X_BYTES_B : X_BYTES_F;
+  const int smem =
+      (in_bf16 ? nin * W_BYTES_B + X_BYTES_B : X_BYTES_F) + RED_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -319,10 +419,15 @@ extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, kern, THREADS, smem)) != cudaSuccess)
     return (int)err;
-  const long tiles = (long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  const int tps = ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  const long tiles = (long)n * tps;
   if (tiles == 0) return (int)cudaSuccess;
   long grid = (long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > tiles) grid = tiles;
-  kern<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kern<<<(unsigned)grid, THREADS, smem, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess || !stats) return (int)err;
+  stats_reduce<<<dim3((unsigned)n, NSTAT / 32), THREADS, 0, st>>>(part, s1, s2,
+                                                                tps);
   return (int)cudaGetLastError();
 }

@@ -8,13 +8,13 @@ s = gamma / sqrt(var + eps). The folded graph is conv + bias -> ReLU.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from onet_tpu_torch.core.policy import Policy, BF16_COMPUTE
 from onet_tpu_torch.models.layers import (
     BN_EPS, max_pool_2x2, conv_transpose_2x2, relu, bd2, bd2_skip_up,
     interleave_branches, restack_branches, conv3x3)
 from onet_tpu_torch.models.onet import channel_dot, is_weight_shared
+from onet_tpu_torch.models.unet import pad_to
 from onet_tpu_torch.ops.normalize import complement
 
 
@@ -59,15 +59,6 @@ def _dconv_infer(p, x, policy):
                            p["conv2"], policy)
 
 
-def _pad_to(y, ref):
-    """The decoder pad of odd sizes: centre y on ref's spatial size."""
-    dh = ref.shape[1] - y.shape[1]
-    dw = ref.shape[2] - y.shape[2]
-    if dh or dw:
-        y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-    return y
-
-
 def _decode(fp, feats, policy, levels):
     """Decoder levels up1..up{levels}: convT, pad, concat(skip, up), dconv."""
     y = feats[-1]
@@ -76,7 +67,7 @@ def _decode(fp, feats, policy, levels):
         y = conv_transpose_2x2(y, up["w"], up["b"], policy=policy)
         skip = feats[4 - i]
         y = _dconv_infer(fp[f"up{i}"]["conv"],
-                         torch.cat([skip, _pad_to(y, skip)], dim=-1), policy)
+                         torch.cat([skip, pad_to(y, skip)], dim=-1), policy)
     return y
 
 
@@ -128,7 +119,7 @@ def unet_infer_stacked(fp, x, *, policy: Policy = BF16_COMPUTE,
     up = fp["up4"]["up"]
     u = conv_transpose_2x2(y2s, bd2(up["w"]), up["b"].repeat(2),
                            policy=policy)
-    xin = torch.cat([x1s, _pad_to(u, x1s)], dim=-1)            # [s1|s2|u1|u2]
+    xin = torch.cat([x1s, pad_to(u, x1s)], dim=-1)            # [s1|s2|u1|u2]
     pc = fp["up4"]["conv"]
     h = _cbr_stacked(xin, pc["conv1"], policy,
                      wmap=lambda w: bd2_skip_up(w, c_skip=c))

@@ -1,15 +1,24 @@
-"""U-Net parameters, init subset (``onet_tpu/models/unet.py``).
+"""Functional U-Net returning (local, global) features
+(``onet_tpu/models/unet.py``).
 
 Channels 64-128-256-512-1024 at ``base=64`` (the reference's 31.04M-param
 net); DoubleConv = (3x3 conv no-bias -> BN -> ReLU) x2, Down = maxpool +
 DoubleConv, Up = ConvTranspose(k=2, s=2) -> pad -> concat(skip, up) ->
-DoubleConv. Parameters are nested dicts with the JAX tree's keys.
+DoubleConv. Parameters are nested dicts with the JAX tree's keys. The
+forward returns the first DoubleConv's output (local features) and the
+last decoder output (global features), with the new BatchNorm state.
+
+The JAX package's ``reshard`` and ``ops`` arguments (mesh sharding hooks
+and injectable layers for its parallel and quantized trainers) are not
+ported: those trainers are not.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from onet_tpu_torch.core.policy import Policy, DEFAULT
 from onet_tpu_torch.models import layers as L
 
 
@@ -54,6 +63,147 @@ def unet_init(gen: torch.Generator, in_channels: int = 1,
     return params, state
 
 
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _double_conv(params, state, x, *, train, groups, policy,
+                 interleaved=False):
+    x = L.conv3x3(x, params["conv1"]["w"], policy=policy)
+    x, s1 = L.batch_norm(x, params["bn1"], state["bn1"], train=train,
+                         groups=groups, interleaved=interleaved)
+    x = L.relu(x)
+    x = L.conv3x3(x, params["conv2"]["w"], policy=policy)
+    x, s2 = L.batch_norm(x, params["bn2"], state["bn2"], train=train,
+                         groups=groups, interleaved=interleaved)
+    return L.relu(x), {"bn1": s1, "bn2": s2}
+
+
+def _down(params, state, x, *, train, groups, policy, interleaved=False):
+    return _double_conv(params, state, L.max_pool_2x2(x), train=train,
+                        groups=groups, policy=policy, interleaved=interleaved)
+
+
+def pad_to(y, ref):
+    """The decoder pad of odd sizes: centre y on ref's spatial size (the
+    reference's asymmetric F.pad)."""
+    dh = ref.shape[1] - y.shape[1]
+    dw = ref.shape[2] - y.shape[2]
+    if dh or dw:
+        y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+    return y
+
+
+def _up(params, state, x, skip, *, train, groups, policy, interleaved=False):
+    x = L.conv_transpose_2x2(x, params["up"]["w"], params["up"]["b"],
+                             policy=policy)
+    x = torch.cat([skip, pad_to(x, skip)], dim=-1)    # reference: [skip, up]
+    y, s = _double_conv(params["conv"], state["conv"], x, train=train,
+                        groups=groups, policy=policy, interleaved=interleaved)
+    return y, {"conv": s}
+
+
+def _mid_levels(params, state, x2, new_state, *, train, policy,
+                interleaved):
+    """down2 .. up3 on the batch-stacked [2B, ...] tensor: shared by the
+    stacked and pair-packed paths. Fills ``new_state``; returns y2."""
+    kw = dict(train=train, groups=2, policy=policy, interleaved=interleaved)
+    x3, new_state["down2"] = _down(params["down2"], state["down2"], x2, **kw)
+    x4, new_state["down3"] = _down(params["down3"], state["down3"], x3, **kw)
+    x5, new_state["down4"] = _down(params["down4"], state["down4"], x4, **kw)
+    y4, new_state["up1"] = _up(params["up1"], state["up1"], x5, x4, **kw)
+    y3, new_state["up2"] = _up(params["up2"], state["up2"], y4, x3, **kw)
+    y2, new_state["up3"] = _up(params["up3"], state["up3"], y3, x2, **kw)
+    return y2
+
+
+def down1_stacked(p, s, hp, *, train, policy, interleaved):
+    """down1 from the channel-stacked pooled tensor: conv1 channel-stacked
+    (block-diagonal weight), then the unstack to the batch form (block
+    concat, or sample interleave with ``interleaved``) and conv2 there.
+    Returns (x2 [2B, ...], down1 state)."""
+    h = L.conv3x3(hp, L.bd2(p["conv1"]["w"]), policy=policy)
+    h, s1 = L.batch_norm(h, p["bn1"], s["bn1"], train=train, groups=2,
+                         stacked=True)
+    h = L.relu(h)
+    if interleaved:
+        xb = L.interleave_branches(h)
+    else:
+        c1 = h.shape[-1] // 2
+        xb = torch.cat([h[..., :c1], h[..., c1:]], dim=0)
+    xb = L.conv3x3(xb, p["conv2"]["w"], policy=policy)
+    xb, s2 = L.batch_norm(xb, p["bn2"], s["bn2"], train=train, groups=2,
+                          interleaved=interleaved)
+    return L.relu(xb), {"bn1": s1, "bn2": s2}
+
+
+def unet_apply_stacked(params, state, x, *, train: bool,
+                       policy: Policy = DEFAULT, dp_local: bool = False):
+    """Weight-shared twin pass with the branches channel-stacked at the
+    64-channel levels (inc, up4; block-diagonal weights) and batch-stacked
+    in between. ``x`` is [B, H, W, 2*in_ch]; ``dp_local=True`` unstacks
+    the middle levels sample-interleaved instead of in two batch blocks.
+    Returns ((local, glob), new_state), local/glob [B, H, W, 128]."""
+    new_state = {}
+    b = x.shape[0]
+    p, s = params["inc"], state["inc"]
+    h = L.conv3x3(x, L.bd2(p["conv1"]["w"]), policy=policy)
+    h, s1 = L.batch_norm(h, p["bn1"], s["bn1"], train=train, groups=2,
+                         stacked=True)
+    h = L.relu(h)
+    h = L.conv3x3(h, L.bd2(p["conv2"]["w"]), policy=policy)
+    h, s2 = L.batch_norm(h, p["bn2"], s["bn2"], train=train, groups=2,
+                         stacked=True)
+    x1s = L.relu(h)
+    new_state["inc"] = {"bn1": s1, "bn2": s2}
+
+    c = x1s.shape[-1] // 2
+    x2, new_state["down1"] = down1_stacked(
+        params["down1"], state["down1"], L.max_pool_2x2(x1s), train=train,
+        policy=policy, interleaved=dp_local)
+    y2 = _mid_levels(params, state, x2, new_state, train=train,
+                     policy=policy, interleaved=dp_local)
+    y2s = (L.restack_branches(y2) if dp_local
+           else torch.cat([y2[:b], y2[b:]], dim=-1))
+    up, sc = params["up4"], state["up4"]["conv"]
+    u = L.conv_transpose_2x2(y2s, L.bd2(up["up"]["w"]),
+                             up["up"]["b"].repeat(2), policy=policy)
+    xin = torch.cat([x1s, pad_to(u, x1s)], dim=-1)      # [s1|s2|u1|u2]
+    pc = up["conv"]
+    h = L.conv3x3(xin, L.bd2_skip_up(pc["conv1"]["w"], c_skip=c),
+                  policy=policy)
+    h, s1 = L.batch_norm(h, pc["bn1"], sc["bn1"], train=train, groups=2,
+                         stacked=True)
+    h = L.relu(h)
+    h = L.conv3x3(h, L.bd2(pc["conv2"]["w"]), policy=policy)
+    h, s2 = L.batch_norm(h, pc["bn2"], sc["bn2"], train=train, groups=2,
+                         stacked=True)
+    new_state["up4"] = {"conv": {"bn1": s1, "bn2": s2}}
+    return (x1s, L.relu(h)), new_state
+
+
+def unet_apply(params, state, x, *, train: bool, groups: int = 1,
+               policy: Policy = DEFAULT):
+    """The U-Net on an NHWC batch of ``groups`` stacked branches. Returns
+    ((local, glob), new_state), each feature [N, H, W, base]."""
+    new_state = {}
+    kw = dict(train=train, groups=groups, policy=policy)
+    x1, new_state["inc"] = _double_conv(params["inc"], state["inc"], x, **kw)
+    x2, new_state["down1"] = _down(params["down1"], state["down1"], x1, **kw)
+    x3, new_state["down2"] = _down(params["down2"], state["down2"], x2, **kw)
+    x4, new_state["down3"] = _down(params["down3"], state["down3"], x3, **kw)
+    x5, new_state["down4"] = _down(params["down4"], state["down4"], x4, **kw)
+    y4, new_state["up1"] = _up(params["up1"], state["up1"], x5, x4, **kw)
+    y3, new_state["up2"] = _up(params["up2"], state["up2"], y4, x3, **kw)
+    y2, new_state["up3"] = _up(params["up3"], state["up3"], y3, x2, **kw)
+    y1, new_state["up4"] = _up(params["up4"], state["up4"], y2, x1, **kw)
+    return (x1, y1), new_state
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
 def tree_leaves(tree):
     """Leaves of a nested dict, in key order."""
     if isinstance(tree, dict):
@@ -61,11 +211,25 @@ def tree_leaves(tree):
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict."""
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in tree_leaves order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested dict (leaf by leaf across
+    ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def param_count(params) -> int:

@@ -1,23 +1,35 @@
-"""Width-pair-packed 3x3 convolution (``onet_tpu/ops/pallas_conv.py``).
+"""Width-pair-packed 3x3 convolution and its gradient
+(``onet_tpu/ops/pallas_conv.py``).
 
 The packed layout carries a per-branch [N, H, W, 64] tensor as
 [N, H, W/2, 128] with lane p*64 + c for pixel parity p = w % 2. A SAME 3x3
 conv on it is, per kernel row di, a centre product with Wc[di] plus an edge
 product with We[di] on the cross-pair operand ae (see ``make_wc_we``).
 
-``conv3x3_wp_raw`` and ``conv3x3_wp2_raw`` keep the JAX functions'
-contract. On a CPU tensor they run the plain PyTorch version below, which
-repeats the JAX kernel's arithmetic (shifted operands, then ``@``). On a CUDA
-tensor they launch the hand-written kernel of ``csrc/conv_wp.cu`` or raise;
+``conv3x3_wp_raw``, ``conv3x3_wp2_raw`` and ``conv3x3_wp_dw`` keep the JAX
+functions' contract. On a CPU tensor they run the plain PyTorch version
+below, which repeats the JAX kernel's arithmetic (shifted operands, then
+``@``). On a CUDA tensor they launch the hand-written kernel or raise;
 nothing falls back. Each wrapper counts its kernel launches in ``.launches``.
 
-The card kernel replaces ``_fwd_kernel`` and ``_fwd2_kernel``
-(``onet_tpu/ops/pallas_conv.py:212,259``). It reads the packed tensor as the
-NHWC tensor it is byte for byte and runs the 9 real 64x64 taps, taken from
-Wc's blocks, instead of the 6 128x128 products with their 25% zeros. It is
-bound on the H100 about equally by tensor-core operations and HBM bytes;
-``csrc/conv_wp.cu`` says what its design does about each. The BatchNorm-stats
-epilogue (``stats=True``) is training work and runs only in the plain version.
+The card kernels:
+* ``csrc/conv_wp.cu`` replaces ``_fwd_kernel`` and ``_fwd2_kernel``
+  (``onet_tpu/ops/pallas_conv.py:212,259``), with the bias+ReLU epilogue and
+  the BatchNorm-stats epilogue (``stats=True``: per-sample lane sums from
+  the f32 accumulator, reduced across CTAs by a deterministic second pass).
+  It reads the packed tensor as the NHWC tensor it is byte for byte and runs
+  the 9 real 64x64 taps, taken from Wc's blocks, instead of the 6 128x128
+  products with their 25% zeros.
+* ``csrc/conv_wp_dw.cu`` replaces ``_dw_kernel`` (``pallas_conv.py:457``):
+  the 9 taps of the weight gradient as 64x64 products over the pixels, per
+  CTA partials summed by a deterministic second pass.
+Both are bound on the H100 about equally by tensor-core operations and HBM
+bytes; the sources say what their designs do about each.
+
+``conv3x3_wp`` and ``conv3x3_wp2`` are the differentiable forms
+(``torch.autograd.Function``, the JAX ``custom_vjp``): forward with the
+stats epilogue, dx through the forward kernel with ``flip_transpose``d
+weights, dw through ``conv3x3_wp_dw``; s1 and s2 carry no gradient.
 """
 
 from __future__ import annotations
@@ -73,6 +85,12 @@ def make_wc_we(w: torch.Tensor, dtype=torch.bfloat16):
                    torch.cat([z, w[di, 2]], 1)], 0)
         for di in range(3)])
     return wc, we
+
+
+def flip_transpose(w: torch.Tensor) -> torch.Tensor:
+    """W'[di, dj] = W[2-di, 2-dj]^T: the weight under which the forward conv
+    of dy computes the input gradient of conv(x, W)."""
+    return w.flip(0, 1).transpose(2, 3)
 
 
 def taps_from_wc(wc: torch.Tensor) -> torch.Tensor:
@@ -136,6 +154,24 @@ def conv3x3_wp2_plain(xa, xb, wca, wea, wcb, web, *, bias=None,
     return _finish_plain(acc, bias, bias_relu, stats, out_dtype or xa.dtype)
 
 
+def conv3x3_wp_dw_plain(x, dy):
+    """Plain PyTorch version of ``conv3x3_wp_dw``: the quadrant products
+    Gc[di] = xc^T dy and Ge[di] = ae^T dy of the JAX kernel in f32, and the
+    taps assembled from their quadrants (two partial sums per tap)."""
+    h = x.shape[1]
+    xs = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1))
+    ae = torch.nn.functional.pad(_edge_operand(x.float()), (0, 0, 0, 0, 1, 1))
+    d = dy.float().reshape(-1, L)
+    gc = [xs[:, di:di + h].reshape(-1, L).T @ d for di in range(3)]
+    ge = [ae[:, di:di + h].reshape(-1, L).T @ d for di in range(3)]
+    return torch.stack([
+        torch.stack([
+            gc[di][:C, C:] + ge[di][:C, :C],             # dj = -1
+            gc[di][:C, :C] + gc[di][C:, C:],             # dj = 0
+            gc[di][C:, :C] + ge[di][C:, C:],             # dj = +1
+        ]) for di in range(3)])
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the kernel on the card
 # ---------------------------------------------------------------------------
@@ -164,33 +200,45 @@ def _check(xs, ws):
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _launch(xs, wcs, bias, bias_relu, stats, out_dtype):
-    """Run csrc/conv_wp.cu on CUDA tensors; returns y [N, H, Wp, 128]."""
-    if stats:
-        raise NotImplementedError(
-            "stats=True (the BatchNorm-statistics epilogue) is not in the "
-            "CUDA kernel yet: it comes with the training slice of the port")
+def _aligned(*ts):
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("conv_wp kernels need 16-byte aligned tensors")
+
+
+def _launch(xs, taps, bias, bias_relu, stats, out_dtype):
+    """Run csrc/conv_wp.cu on CUDA tensors with the per-input [3, 3, 64, 64]
+    taps; returns y [N, H, Wp, 128], and with ``stats`` also (s1, s2)
+    [N, 128] f32. Counts the launch on the wrapper of its arity."""
     x0 = xs[0]
     dev = x0.device
     if x0.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise TypeError(f"conv_wp kernel takes bf16 or f32, got {x0.dtype} "
                         f"-> {out_dtype}")
-    for w in wcs:
-        if w.device != dev or w.dtype != x0.dtype:
-            raise ValueError("weights must match the input's device and "
-                             f"dtype ({dev}, {x0.dtype}); got {w.device}, "
-                             f"{w.dtype}")
+    for t in taps:
+        if t.device != dev or t.dtype != x0.dtype or \
+                tuple(t.shape) != (3, 3, C, C):
+            raise ValueError("taps must be [3, 3, 64, 64] on the input's "
+                             f"device and in its dtype ({dev}, {x0.dtype}); "
+                             f"got {tuple(t.shape)} {t.device} {t.dtype}")
     xs = [x.contiguous() for x in xs]
-    taps = [taps_from_wc(w) for w in wcs]
+    taps = [t.contiguous() for t in taps]
     b = _bias(bias, x0).to(dev).contiguous()
     n, h, wp, _ = x0.shape
     y = torch.empty((n, h, wp, L), dtype=out_dtype, device=dev)
-    for t in (*xs, *taps, b, y):
-        if t.data_ptr() % 16:
-            raise ValueError("conv_wp kernel needs 16-byte aligned tensors")
+    _aligned(*xs, *taps, b, y)
+    if stats:
+        # per-tile partials of the first pass: 8-row x 32-pixel tiles
+        tiles = n * -(-h // 8) * -(-(2 * wp) // 32)
+        part = torch.empty((tiles, 2 * L), dtype=torch.float32, device=dev)
+        s1 = torch.zeros((n, L), dtype=torch.float32, device=dev)
+        s2 = torch.zeros((n, L), dtype=torch.float32, device=dev)
+        ptrs = (part.data_ptr(), s1.data_ptr(), s2.data_ptr())
+    else:
+        ptrs = (0, 0, 0)
     lib = _build.load("conv_wp")
     fn = lib.onet_conv3x3_wp
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     x1 = xs[1] if len(xs) > 1 else xs[0]
@@ -198,13 +246,49 @@ def _launch(xs, wcs, bias, bias_relu, stats, out_dtype):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xs[0].data_ptr(), x1.data_ptr(), taps[0].data_ptr(),
-                 t1.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, 2 * wp,
-                 len(xs), int(x0.dtype == torch.bfloat16),
+                 t1.data_ptr(), b.data_ptr(), y.data_ptr(), *ptrs, n, h,
+                 2 * wp, len(xs), int(x0.dtype == torch.bfloat16),
                  int(out_dtype == torch.bfloat16), int(bool(bias_relu)),
-                 stream)
+                 int(bool(stats)), stream)
     if err:
         raise RuntimeError(f"conv_wp kernel launch failed: CUDA error {err}")
-    return y
+    counted = conv3x3_wp_raw if len(xs) == 1 else conv3x3_wp2_raw
+    counted.launches += 1
+    counted.stats_launches += bool(stats)
+    return (y, s1, s2) if stats else y
+
+
+def _launch_dw(x, dy):
+    """Run csrc/conv_wp_dw.cu on CUDA tensors; returns dw [3, 3, 64, 64]."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv_wp_dw kernel takes bf16 or f32, got {x.dtype}")
+    dev = x.device
+    n, h, wp, _ = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = _build.load("conv_wp_dw")
+    blocks = lib.onet_conv3x3_wp_dw_blocks
+    blocks.argtypes = [ctypes.c_int] * 4
+    blocks.restype = ctypes.c_int
+    fn = lib.onet_conv3x3_wp_dw
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        nblk = blocks(n, h, 2 * wp, bf16)
+        if nblk < 0:
+            raise RuntimeError(f"conv_wp_dw kernel setup failed: CUDA error "
+                               f"{-nblk}")
+        part = torch.empty((nblk, 3, 3, C, C), dtype=torch.float32,
+                           device=dev)
+        dw = torch.empty((3, 3, C, C), dtype=torch.float32, device=dev)
+        _aligned(x, dy, part, dw)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                 dw.data_ptr(), n, h, 2 * wp, bf16, nblk, stream)
+    if err:
+        raise RuntimeError(f"conv_wp_dw kernel launch failed: CUDA error "
+                           f"{err}")
+    return dw
 
 
 def _on_cpu(x) -> bool:
@@ -222,7 +306,8 @@ def conv3x3_wp_raw(x, wc, we, *, bias=None, bias_relu: bool = False,
     x: [N, H, Wp, 128] packed; wc/we: [3, 128, 128] from make_wc_we in x's
     dtype. Returns y [N, H, Wp, 128] (out_dtype, default x.dtype); with
     ``stats=True`` also the per-sample f32 lane sums (s1, s2), each
-    [N, 128] (plain version only). ``bias_relu=True`` stores
+    [N, 128], of the stored value before its cast (sum and sum of squares
+    over that sample's pixels). ``bias_relu=True`` stores
     max(acc + bias, 0), ``bias`` a [128] packed vector; without it the bias
     is not added, as in the JAX kernel."""
     _check([x], [wc, we])
@@ -230,9 +315,8 @@ def conv3x3_wp_raw(x, wc, we, *, bias=None, bias_relu: bool = False,
     if _on_cpu(x):
         return conv3x3_wp_plain(x, wc, we, bias=bias, bias_relu=bias_relu,
                                 stats=stats, out_dtype=out_dtype)
-    y = _launch([x], [wc], bias, bias_relu, stats, out_dtype)
-    conv3x3_wp_raw.launches += 1
-    return y
+    return _launch([x], [taps_from_wc(wc)], bias, bias_relu, stats,
+                   out_dtype)
 
 
 def conv3x3_wp2_raw(xa, xb, wca, wea, wcb, web, *, bias=None,
@@ -247,10 +331,107 @@ def conv3x3_wp2_raw(xa, xb, wca, wea, wcb, web, *, bias=None,
         return conv3x3_wp2_plain(xa, xb, wca, wea, wcb, web, bias=bias,
                                  bias_relu=bias_relu, stats=stats,
                                  out_dtype=out_dtype)
-    y = _launch([xa, xb], [wca, wcb], bias, bias_relu, stats, out_dtype)
-    conv3x3_wp2_raw.launches += 1
-    return y
+    return _launch([xa, xb], [taps_from_wc(wca), taps_from_wc(wcb)], bias,
+                   bias_relu, stats, out_dtype)
 
 
-conv3x3_wp_raw.launches = 0
-conv3x3_wp2_raw.launches = 0
+def conv3x3_wp_dw(x, dy):
+    """Weight gradient of the pair-packed conv: x, dy packed
+    [N, H, Wp, 128] of one dtype -> dw [3, 3, 64, 64] f32 (HWIO), summed
+    over the batch (branches ride the batch, so weight sharing is
+    automatic)."""
+    _check([x, dy], [])
+    if _on_cpu(x):
+        return conv3x3_wp_dw_plain(x, dy)
+    if dy.device != x.device:
+        raise ValueError(f"x on {x.device}, dy on {dy.device}")
+    dw = _launch_dw(x.contiguous(), dy.contiguous())
+    conv3x3_wp_dw.launches += 1
+    return dw
+
+
+# kernel launches; stats_launches counts those with the stats epilogue
+conv3x3_wp_raw.launches = conv3x3_wp_raw.stats_launches = 0
+conv3x3_wp2_raw.launches = conv3x3_wp2_raw.stats_launches = 0
+conv3x3_wp_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (the JAX custom_vjp)
+# ---------------------------------------------------------------------------
+
+def _conv_w(xs, ws, stats=False):
+    """The conv of the differentiable forms on [3, 3, 64, 64] weights: on
+    the CPU the plain version through Wc/We, as the JAX function computes
+    it; on the card the kernel on the taps themselves."""
+    _check(xs, [])
+    x = xs[0]
+    if _on_cpu(x):
+        wcs = [m for w in ws for m in make_wc_we(w, dtype=x.dtype)]
+        plain = conv3x3_wp_plain if len(xs) == 1 else conv3x3_wp2_plain
+        return plain(*xs, *wcs, stats=stats)
+    return _launch(xs, [w.to(x.dtype) for w in ws], None, False, stats,
+                   x.dtype)
+
+
+class _ConvWp(torch.autograd.Function):
+    """(x, w) -> (y, s1, s2) with the stats epilogue; s1/s2 feed the
+    BatchNorm EMA and the precomputed-stats apply, both gradient-free."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        y, s1, s2 = _conv_w([x], [w], stats=True)
+        ctx.save_for_backward(x, w)
+        ctx.mark_non_differentiable(s1, s2)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, _ds1, _ds2):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv_w([dy], [flip_transpose(w)])
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wp_dw(x, dy).to(w.dtype)
+        return dx, dw
+
+
+class _ConvWp2(torch.autograd.Function):
+    """(xa, xb, wa, wb) -> (y, s1, s2), y = conv(xa, wa) + conv(xb, wb)."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, wa, wb):
+        y, s1, s2 = _conv_w([xa, xb], [wa, wb], stats=True)
+        ctx.save_for_backward(xa, xb, wa, wb)
+        ctx.mark_non_differentiable(s1, s2)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, _ds1, _ds2):
+        xa, xb, wa, wb = ctx.saved_tensors
+        dy = dy.to(xa.dtype).contiguous()
+        grads = [None] * 4
+        for i, (x, w) in enumerate(((xa, wa), (xb, wb))):
+            if ctx.needs_input_grad[i]:
+                grads[i] = _conv_w([dy], [flip_transpose(w)])
+            if ctx.needs_input_grad[2 + i]:
+                grads[2 + i] = conv3x3_wp_dw(x, dy).to(w.dtype)
+        return tuple(grads)
+
+
+def conv3x3_wp(x, w):
+    """Differentiable pair-packed SAME 3x3 conv with the fused BN stats.
+
+    x: packed [N, H, Wp, 128]; w: [3, 3, 64, 64] HWIO per-branch weight,
+    products in x.dtype with f32 accumulation. Returns (y, s1, s2): y in
+    x.dtype, s1/s2 the per-sample f32 lane sums of y (no gradient)."""
+    return _ConvWp.apply(x, w)
+
+
+def conv3x3_wp2(xa, xb, wa, wb):
+    """Differentiable two-input form: y = conv(xa, wa) + conv(xb, wb), the
+    decoder conv over concat(skip, up) without the concat; wa/wb are the
+    [3, 3, 128, 64] weight split at input channel 64. Returns (y, s1, s2)
+    like conv3x3_wp."""
+    return _ConvWp2.apply(xa, xb, wa, wb)

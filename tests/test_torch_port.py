@@ -21,6 +21,8 @@ def test_port_imports_neither_jax_nor_onet_tpu():
         onet_tpu_torch.__path__, "onet_tpu_torch."))
     assert "onet_tpu_torch.ops.conv_wp" in mods
     assert "onet_tpu_torch.serve.http" in mods
+    assert "onet_tpu_torch.train.steps" in mods
+    assert "onet_tpu_torch.metrics.segmentation" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -42,7 +44,8 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from onet_tpu_torch.core.bridge import (
-        from_jax_numpy, import_torch_state, load_onet_npz)
+        adam_state_from_jax, from_jax_numpy, import_torch_state,
+        load_onet_npz)
     from onet_tpu_torch.core.device import resolve_device
     from onet_tpu_torch.models.onet import onet_init
     from onet_tpu_torch.serve.http import ServingSession
@@ -55,6 +58,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: from_jax_numpy({"w": np.zeros(2, np.float32)}, {}),
         lambda: import_torch_state({}),
         lambda: load_onet_npz(str(tmp_path / "missing.npz")),
+        lambda: adam_state_from_jax(0, {"w": np.zeros(2, np.float32)},
+                                    {"w": np.zeros(2, np.float32)}),
         lambda: ServingSession(None, None, batch=1, in_channels=1),
     ]
     for call in calls:
