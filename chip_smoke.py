@@ -28,6 +28,17 @@ Phases, each fatal on failure:
      cosine) and bf16 at batch 8 (loss); step time and frames/s for both
      paths, a profiler breakdown and the peak memory of a pair-packed step;
      one make_eval_step call on labels thresholded from the frames.
+  5. the other kernels (JSD head forward and backward, min-max,
+     native-layout conv with stats, one and two inputs): each against its
+     plain version at small shapes (f32, bf16, ragged); then the main path,
+     launches counted: fused_jsd_loss forward and backward on the four
+     [8,512,512,64] bf16 halves of one full-width training forward,
+     paired_input on the train batch's frames, the bd probe's two
+     N=8 512x512 sites through the probe module; those outputs against the
+     plain versions, compute_loss and autograd of the stacked head; timings
+     beside the plain version, the bound and cuDNN's conv alone (timed by
+     the probe on the same inputs) or the eager formulation; the probe's
+     own A/B.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -36,7 +47,6 @@ from __future__ import annotations
 
 import io
 import json
-import statistics
 import subprocess
 import sys
 import threading
@@ -45,6 +55,8 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms
 
 SEED = 1981
 H = W = 512
@@ -79,22 +91,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
-
-
-def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def bound(nin: int, n: int, dtype, *, stats=False, dw=False) -> tuple:
@@ -606,6 +602,311 @@ def train(TC, dev) -> dict:
                 eval=metrics, **perf)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the head, min-max and native-layout conv kernels
+# ---------------------------------------------------------------------------
+
+def rel_err(got, ref) -> tuple:
+    """(max |got - ref|, that over max |ref|), in f32."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def checked(tag, pairs) -> float:
+    """Log and assert [(label, got, ref, rel_tol)]; returns the largest
+    absolute error."""
+    msg, ok, worst = [], True, 0.0
+    for label, got, ref, tol in pairs:
+        err, rel = rel_err(got, ref)
+        ok = ok and rel <= tol
+        worst = max(worst, err)
+        msg.append(f"{label} {err:.3e} ({rel:.2e} of max, tol {tol:g})")
+    log(f"[check] {tag}: {', '.join(msg)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} disagrees")
+    return worst
+
+
+def head_err(HD, ts, tag, tol) -> tuple:
+    """jsd_loss_fwd and jsd_loss_bwd (through autograd) against their
+    plain versions: the loss within 1e-5 relative, each gradient within
+    ``tol`` of its largest magnitude. Returns (largest absolute error,
+    the kernel's gradients)."""
+    ts = [t.detach().requires_grad_(True) for t in ts]
+    loss = HD.fused_jsd_loss(*ts)
+    grads = torch.autograd.grad(loss, ts)
+    flat = [t.detach() for t in ts]
+    npix = flat[0].numel() // flat[0].shape[-1]
+    scale = torch.full((1,), 1.0 / (2 * npix), device=flat[0].device)
+    refs = HD.jsd_loss_bwd_plain(*flat, scale)
+    err = checked(tag, [("loss", loss, HD.jsd_loss_fwd_plain(*flat), 1e-5)]
+                  + [(f"d{n}", g, r, tol) for n, g, r in
+                     zip(("Lt", "Ht", "Ld", "Hd"), grads, refs)])
+    return err, grads
+
+
+def minmax_err(HD, x, tag) -> float:
+    """minmax_complement and paired_input against the plain version: equal
+    within one f32 ulp (IEEE division on both sides)."""
+    xn, xc = HD.minmax_complement(x)
+    pair = HD.paired_input(x)
+    rn, rc = HD.minmax_complement_plain(x)
+    ulp = 2.0 ** -23      # outputs lie in [0, 1]
+    return checked(tag, [("xn", xn, rn, ulp), ("xc", xc, rc, ulp),
+                         ("pair", pair, torch.cat([rn, rc]), ulp)])
+
+
+def bd_err(BD, xs, ws, tag) -> float:
+    """The bd kernel with stats against its plain version: y in the
+    default dtype (1e-2 of max|y| for bf16 out, one rounding; 1e-4 f32),
+    s1/s2 within SUM_REL of their max."""
+    raw = BD.conv3x3_bd_raw if len(xs) == 1 else BD.conv3x3_bd2in_raw
+    plain = BD.conv3x3_bd_plain if len(xs) == 1 else BD.conv3x3_bd2in_plain
+    y, s1, s2 = raw(*xs, *ws, stats=True)
+    ry, rs1, rs2 = plain(*xs, *ws, stats=True, out_dtype=torch.float32)
+    tol = 1e-2 if y.dtype == torch.bfloat16 else 1e-4
+    return checked(tag, [("y", y, ry, tol), ("s1", s1, rs1, SUM_REL),
+                         ("s2", s2, rs2, SUM_REL)])
+
+
+def small_phase5_checks(HD, BD, dev):
+    """Each new kernel against its plain version at small shapes, f32 and
+    bf16: pixel counts with no multiple-of-8 divisor (15, 2x37x53), bd at
+    N=4 with H and W not multiples of the 8x32 tile."""
+    g = torch.Generator().manual_seed(SEED + 50)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        dt = str(dtype)[6:]
+        for shape in ((1, 3, 5, 64), (2, 8, 16, 64)):
+            ts = [torch.randn(shape, generator=g).to(dev, dtype)
+                  for _ in range(4)]
+            head_err(HD, ts, f"head {shape} {dt}", tol)
+        x = (3 * torch.rand((2, 37, 53, 1), generator=g) - 1).to(dev, dtype)
+        minmax_err(HD, x, f"minmax (2, 37, 53, 1) {dt}")
+        xs = [torch.randn((4, 60, 100, 128), generator=g).to(dev, dtype)
+              for _ in range(2)]
+        ws = [(0.05 * torch.randn((3, 3, 128, 128), generator=g))
+              .to(dev, dtype) for _ in range(2)]
+        for nin in (1, 2):
+            bd_err(BD, xs[:nin], ws[:nin], f"conv3x3_bd nin={nin} "
+                   f"(4, 60, 100) {dt}")
+    torch.cuda.empty_cache()
+
+
+def head_features(dev):
+    """loc, glob [8, 512, 512, 128] of one full-width training forward of
+    the weight-shared Onet (base 64, seeded random weights, bf16), taken
+    from unet_apply_stacked as onet_forward takes them, and the frames."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.onet import onet_init
+    from onet_tpu_torch.models.unet import unet_apply_stacked
+    from onet_tpu_torch.ops.normalize import complement
+
+    params, state = onet_init(torch.Generator().manual_seed(SEED + 60), 1,
+                              base=64)
+    x = torch.from_numpy(frames(8, SEED + 61)).to(dev)
+    with torch.no_grad(), BF16_COMPUTE.precision():
+        (loc, glob), _ = unet_apply_stacked(
+            params["top"], state["top"], torch.cat([x, complement(x)], -1),
+            train=True, policy=BF16_COMPUTE)
+    log(f"[phase5] forward features loc {tuple(loc.shape)} {loc.dtype}, "
+        f"glob {glob.dtype}")
+    return loc.to(torch.bfloat16), glob.to(torch.bfloat16), x
+
+
+def halves(loc, glob):
+    """Lt, Ht, Ld, Hd: the four contiguous per-branch halves."""
+    c = loc.shape[-1] // 2
+    return [t.contiguous() for t in (loc[..., :c], glob[..., :c],
+                                     loc[..., c:], glob[..., c:])]
+
+
+def stacked_loss(loc, glob):
+    """compute_loss of the OnetOutput onet_forward builds from (loc, glob)
+    on the stacked path: the eager formulation of the train step."""
+    from onet_tpu_torch.models import onet as O
+    v, lsum = O.stacked_head(loc, glob)
+    c = loc.shape[-1] // 2
+    out = O.OnetOutput(Lt=loc[..., :c], Ld=loc[..., c:], Vt=v[..., 0],
+                       Vd=v[..., 1], S=torch.softmax(v, dim=-1), Lsum=lsum)
+    return O.compute_loss(out)
+
+
+def head_minmax_bd(dev) -> list:
+    """Phase 5: the JSD head, min-max and native-layout conv kernels.
+    Small-shape checks; the main path, counted (fused_jsd_loss forward and
+    backward on the features of a full-width bf16 forward at batch 8,
+    paired_input on the train batch's frames, the bd probe's two sites
+    through the probe module); checks of those outputs; timings; the
+    probe. Returns the kernels line's rows."""
+    from onet_tpu_torch.ops import conv_bd as BD
+    from onet_tpu_torch.ops import head as HD
+    from onet_tpu_torch.ops.normalize import complement, minmax_per_frame
+    from onet_tpu_torch.runs import bd_epilogue_probe as probe
+
+    small_phase5_checks(HD, BD, dev)
+    loc, glob, x = head_features(dev)
+    feats = halves(loc, glob)
+    bd_in = probe.inputs(dev, seed=SEED)
+
+    # the main path, counted
+    counted = {"jsd_loss_fwd": HD.jsd_loss_fwd,
+               "jsd_loss_bwd": HD.jsd_loss_bwd,
+               "minmax_complement": HD.minmax_complement,
+               "conv3x3_bd+stats": BD.conv3x3_bd_raw,
+               "conv3x3_bd2in+stats": BD.conv3x3_bd2in_raw}
+    for fn in counted.values():
+        fn.launches = 0
+    ts = [t.detach().requires_grad_(True) for t in feats]
+    loss = HD.fused_jsd_loss(*ts)
+    grads = torch.autograd.grad(loss, ts)
+    pair = HD.paired_input(x)
+    site1 = probe.site1(bd_in[0], bd_in[2])
+    site2 = probe.site2(*bd_in[:2], *bd_in[3:])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"[phase5] launches on the main path: {launches}; loss "
+        f"{loss.item():.7f}, probe sites {site1.item():.4f} "
+        f"{site2.item():.4f}")
+    if launches != {k: 1 for k in counted}:
+        raise AssertionError(f"phase 5 launches {launches}, expected 1 each")
+    if not (torch.isfinite(site1) and torch.isfinite(site2)):
+        raise AssertionError("non-finite probe result")
+
+    errs = {}
+    # head, bf16 as the forward gives it: kernel against plain and against
+    # compute_loss of the same forward; gradients against plain and
+    # against autograd through the stacked head
+    flat = [t.detach() for t in ts]
+    npix = flat[0].numel() // flat[0].shape[-1]
+    scale = torch.full((1,), 1.0 / (2 * npix), device=dev)
+    ref_loss = HD.jsd_loss_fwd_plain(*flat)
+    ref_grads = HD.jsd_loss_bwd_plain(*flat, scale)
+    errs["jsd_loss_fwd"] = checked("head loss 8x512x512x64 bf16", [
+        ("plain", loss, ref_loss, 1e-5),
+        ("compute_loss", loss, stacked_loss(loc, glob), 1e-5)])
+    errs["jsd_loss_bwd"] = checked("head grads 8x512x512x64 bf16", [
+        (f"d{n}", g, r, 1e-2) for n, g, r in
+        zip(("Lt", "Ht", "Ld", "Hd"), grads, ref_grads)])
+    lv, gv = loc.detach().requires_grad_(True), glob.detach().requires_grad_(
+        True)
+    dloc, dglob = torch.autograd.grad(stacked_loss(lv, gv), (lv, gv))
+    auto = halves(dloc, dglob)
+    checked("head grads vs autograd of the stacked head, bf16", [
+        (f"d{n}", g, a, 1e-2) for n, g, a in
+        zip(("Lt", "Ht", "Ld", "Hd"), grads, auto)])
+    del dloc, dglob, auto, lv, gv
+    # f32 at full width: the same features upcast
+    _, g32 = head_err(HD, [t.float() for t in flat],
+                      "head 8x512x512x64 f32", 1e-4)
+    lv, gv = (loc.float().requires_grad_(True),
+              glob.float().requires_grad_(True))
+    dloc, dglob = torch.autograd.grad(stacked_loss(lv, gv), (lv, gv))
+    checked("head grads vs autograd of the stacked head, f32", [
+        (f"d{n}", g, a, 1e-3) for n, g, a in
+        zip(("Lt", "Ht", "Ld", "Hd"), g32, halves(dloc, dglob))])
+    del g32, dloc, dglob, lv, gv
+    torch.cuda.empty_cache()
+
+    # min-max on the train batch's frames
+    rn, rc = HD.minmax_complement_plain(x)
+    errs["minmax_complement"] = checked("paired_input [8,512,512,1] f32", [
+        ("pair", pair, torch.cat([rn, rc]), 2.0 ** -23)])
+    ops_n = minmax_per_frame(x)
+    checked("paired_input vs complement(minmax_per_frame(x))", [
+        ("xn", pair[:8], ops_n, 1e-6),
+        ("xc", pair[8:], complement(ops_n), 1e-6)])
+
+    # bd at the probe's sites (N=8, 512x512, bf16)
+    errs["conv3x3_bd+stats"] = bd_err(BD, bd_in[:1], bd_in[2:3],
+                                      "conv3x3_bd probe site N=8 bf16")
+    errs["conv3x3_bd2in+stats"] = bd_err(BD, bd_in[:2], bd_in[3:],
+                                         "conv3x3_bd2in probe site N=8 bf16")
+    torch.cuda.empty_cache()
+
+    # timings: kernel, plain, bound, and a library call or the eager
+    # formulation of the train step where no single call computes it
+    times = {}
+    act = npix * 64 * 2           # bytes of one bf16 half
+    times["jsd_loss_fwd"] = dict(
+        ms=cuda_ms(lambda: HD.jsd_loss_fwd(*flat)),
+        plain_ms=cuda_ms(lambda: HD.jsd_loss_fwd_plain(*flat), reps=3,
+                         warmup=1),
+        bound_ms=(4 * act + 4) / HBM * 1e3, bound_by="bytes",
+        library_ms=None,
+        eager_ms=cuda_ms(lambda: stacked_loss(loc, glob)),
+        eager_call="stacked_head + softmax + jsd_loss_pair, forward")
+
+    def eager_fwd_bwd():
+        lv_ = loc.detach().requires_grad_(True)
+        gv_ = glob.detach().requires_grad_(True)
+        return torch.autograd.grad(stacked_loss(lv_, gv_), (lv_, gv_))
+
+    times["jsd_loss_bwd"] = dict(
+        ms=cuda_ms(lambda: HD.jsd_loss_bwd(*flat, scale)),
+        plain_ms=cuda_ms(lambda: HD.jsd_loss_bwd_plain(*flat, scale),
+                         reps=3, warmup=1),
+        bound_ms=8 * act / HBM * 1e3, bound_by="bytes", library_ms=None,
+        eager_ms=cuda_ms(eager_fwd_bwd),
+        eager_call="stacked_head + softmax + jsd_loss_pair, forward and "
+                   "backward (autograd)")
+    torch.cuda.empty_cache()
+    times["minmax_complement"] = dict(
+        ms=cuda_ms(lambda: HD.minmax_complement(x)),
+        plain_ms=cuda_ms(lambda: HD.minmax_complement_plain(x)),
+        bound_ms=3 * x.numel() * 4 / HBM * 1e3, bound_by="bytes",
+        library_ms=None,
+        eager_ms=cuda_ms(lambda: complement(minmax_per_frame(x))),
+        eager_call="minmax_per_frame + complement")
+    # at 25 MB the call is host-bound: the device time of its two kernels
+    breakdown(lambda: HD.minmax_complement(x), "minmax_complement "
+              "[8,512,512,1] f32", top=4)
+    n_bd = bd_in[0].shape[0]
+    for key, nin in (("conv3x3_bd+stats", 1), ("conv3x3_bd2in+stats", 2)):
+        xs, ws = bd_in[:nin], (bd_in[2:3] if nin == 1 else bd_in[3:])
+        raw = BD.conv3x3_bd_raw if nin == 1 else BD.conv3x3_bd2in_raw
+        plain = BD.conv3x3_bd_plain if nin == 1 else BD.conv3x3_bd2in_plain
+        ms = cuda_ms(lambda: raw(*xs, *ws, stats=True))
+        plain_ms = cuda_ms(lambda: plain(*xs, *ws, stats=True), reps=3,
+                           warmup=1)
+        torch.cuda.empty_cache()
+        flops = 2 * n_bd * H * W * 128 * 128 * 9 * nin
+        nbytes = (nin + 1) * n_bd * H * W * 128 * 2 + nin * 9 * 128 * 128 * 2 \
+            + 2 * n_bd * 128 * 4
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+        times[key] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_call="F.conv2d alone (cuDNN), no stats")
+    del bd_in, feats, flat, ts, grads, loc, glob
+    torch.cuda.empty_cache()
+    # the probe draws the same inputs from SEED and times cuDNN's conv alone
+    probe_out = probe.run(dev, seed=SEED)
+    log("[probe] " + json.dumps(probe_out))
+    torch.cuda.empty_cache()
+    for key, site in (("conv3x3_bd+stats", "single_128"),
+                      ("conv3x3_bd2in+stats", "two_input_256")):
+        times[key]["library_ms"] = probe_out["sites"][site][
+            "library_conv_only_ms"]
+    for key, t in times.items():
+        extra = (f"library {t['library_ms']:.3f} ms" if t["library_ms"]
+                 else f"no library call; eager {t['eager_ms']:.3f} ms "
+                      f"({t['eager_call']})")
+        log(f"[time] {key}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, {extra}, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']})")
+    sources = {"jsd_loss_fwd": ("head.cu", "pallas_head.py:67"),
+               "jsd_loss_bwd": ("head.cu", "pallas_head.py:89"),
+               "minmax_complement": ("head.cu", "pallas_head.py:220"),
+               "conv3x3_bd+stats": ("conv_bd.cu", "pallas_conv_bd.py:96"),
+               "conv3x3_bd2in+stats": ("conv_bd.cu", "pallas_conv_bd.py:119")}
+    rows = [dict(name=k, route="cuda", source=f"onet_tpu_torch/csrc/{src}",
+                 replaces=f"onet_tpu/ops/{rep}", launches=launches[k],
+                 max_abs_err=errs[k], **times[k])
+            for k, (src, rep) in sources.items()]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -648,6 +949,10 @@ def main() -> int:
     log(f"[train] 512x512 batch 8, bf16, Adam: pair-packed "
         f"{trained['train_b8_wp_frames_per_s']:.1f} frames/s, stacked "
         f"{trained['train_b8_stacked_frames_per_s']:.1f} frames/s on {card}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase5_rows = head_minmax_bd(dev)
+    log(f"[phase5] phase took {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -667,6 +972,7 @@ def main() -> int:
         replaces="onet_tpu/ops/pallas_conv.py:457",
         launches=trained["launches"]["conv3x3_wp_dw"],
         max_abs_err=errs["conv3x3_wp_dw"], **times["conv3x3_wp_dw"]))
+    rows += phase5_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

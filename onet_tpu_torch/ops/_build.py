@@ -77,6 +77,15 @@ def build_all() -> list:
     return [out for _, _, out, _ in jobs]
 
 
+def on_cpu(x, op: str) -> bool:
+    """The wrappers' dispatch: True for a CPU tensor (the plain version),
+    False for a CUDA tensor (the kernel); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op} runs on the CPU (plain) or CUDA (kernel), "
+                         f"not {x.device}")
+    return x.device.type == "cpu"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

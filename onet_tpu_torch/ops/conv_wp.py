@@ -291,13 +291,6 @@ def _launch_dw(x, dy):
     return dw
 
 
-def _on_cpu(x) -> bool:
-    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv_wp runs on the CPU (plain) or CUDA (kernel), "
-                         f"not {x.device}")
-    return x.device.type == "cpu"
-
 
 def conv3x3_wp_raw(x, wc, we, *, bias=None, bias_relu: bool = False,
                    stats: bool = False, out_dtype=None):
@@ -312,7 +305,7 @@ def conv3x3_wp_raw(x, wc, we, *, bias=None, bias_relu: bool = False,
     is not added, as in the JAX kernel."""
     _check([x], [wc, we])
     out_dtype = out_dtype or x.dtype
-    if _on_cpu(x):
+    if _build.on_cpu(x, "conv_wp"):
         return conv3x3_wp_plain(x, wc, we, bias=bias, bias_relu=bias_relu,
                                 stats=stats, out_dtype=out_dtype)
     return _launch([x], [taps_from_wc(wc)], bias, bias_relu, stats,
@@ -327,7 +320,7 @@ def conv3x3_wp2_raw(xa, xb, wca, wea, wcb, web, *, bias=None,
     contract as conv3x3_wp_raw."""
     _check([xa, xb], [wca, wea, wcb, web])
     out_dtype = out_dtype or xa.dtype
-    if _on_cpu(xa):
+    if _build.on_cpu(xa, "conv_wp"):
         return conv3x3_wp2_plain(xa, xb, wca, wea, wcb, web, bias=bias,
                                  bias_relu=bias_relu, stats=stats,
                                  out_dtype=out_dtype)
@@ -341,7 +334,7 @@ def conv3x3_wp_dw(x, dy):
     over the batch (branches ride the batch, so weight sharing is
     automatic)."""
     _check([x, dy], [])
-    if _on_cpu(x):
+    if _build.on_cpu(x, "conv_wp"):
         return conv3x3_wp_dw_plain(x, dy)
     if dy.device != x.device:
         raise ValueError(f"x on {x.device}, dy on {dy.device}")
@@ -366,7 +359,7 @@ def _conv_w(xs, ws, stats=False):
     it; on the card the kernel on the taps themselves."""
     _check(xs, [])
     x = xs[0]
-    if _on_cpu(x):
+    if _build.on_cpu(x, "conv_wp"):
         wcs = [m for w in ws for m in make_wc_we(w, dtype=x.dtype)]
         plain = conv3x3_wp_plain if len(xs) == 1 else conv3x3_wp2_plain
         return plain(*xs, *wcs, stats=stats)

@@ -18,7 +18,9 @@ way; only the summation order differs), as chip_smoke.py holds them.
 import pytest
 import torch
 
+from onet_tpu_torch.ops import conv_bd as TB
 from onet_tpu_torch.ops import conv_wp as TC
+from onet_tpu_torch.ops import head as THD
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +165,92 @@ def test_autograd_functions_launch_the_kernels(dev):
     _assert_close(y2, TC.conv3x3_wp2_plain(xa.detach(), xb.detach(), *wcs[0],
                                            *wcs[1], out_dtype=torch.float32),
                   torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the JSD head, min-max and native-layout conv kernels (csrc/head.cu,
+# csrc/conv_bd.cu). Head: the loss within 1e-5 relative, gradients within
+# 1e-4 (f32) and 1e-2 (bf16) of each one's largest magnitude; min-max equal
+# to the plain version (both IEEE f32); bd: y within 1e-4 of max|y| in f32
+# and 1e-2 in bf16 (one rounding), s1/s2 as above.
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / (ref.float().abs().max() + 1e-30)).item()
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64), (1, 3, 5, 64),
+                                   (3, 7, 11, 8), (2, 5, 5, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_kernels_match_plain(dev, shape, dtype):
+    """Pixel counts that are not a multiple of the block, rows of 16-byte
+    multiples (vector loads) and not (C=5 in f32, scalar loads)."""
+    g = torch.Generator().manual_seed(sum(shape))
+    ts = [torch.randn(shape, generator=g).to(dev, dtype).requires_grad_(True)
+          for _ in range(4)]
+    n_fwd, n_bwd = THD.jsd_loss_fwd.launches, THD.jsd_loss_bwd.launches
+    loss = THD.fused_jsd_loss(*ts)
+    grads = torch.autograd.grad(loss, ts)
+    torch.cuda.synchronize()
+    assert THD.jsd_loss_fwd.launches == n_fwd + 1
+    assert THD.jsd_loss_bwd.launches == n_bwd + 1
+    flat = [t.detach() for t in ts]
+    ref = THD.jsd_loss_fwd_plain(*flat)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    npix = shape[0] * shape[1] * shape[2]
+    refs = THD.jsd_loss_bwd_plain(
+        *(t.float() for t in flat),
+        torch.full((1,), 1.0 / (2 * npix), device=dev))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for gr, r in zip(grads, refs):
+        assert gr.dtype == dtype and gr.shape == shape
+        assert _rel(gr, r) <= tol
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 64, 70, 3),
+                                   (1, 512, 512, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minmax_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator().manual_seed(shape[1])
+    x = (5 * torch.rand(shape, generator=g) - 1).to(dev, dtype)
+    n = THD.minmax_complement.launches
+    xn, xc = THD.minmax_complement(x)
+    pair = THD.paired_input(x)
+    torch.cuda.synchronize()
+    assert THD.minmax_complement.launches == n + 2
+    rn, rc = THD.minmax_complement_plain(x)
+    assert xn.dtype == xc.dtype == dtype
+    assert torch.equal(xn, rn) and torch.equal(xc, rc)
+    assert torch.equal(pair, torch.cat([rn, rc]))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 12, 20), (3, 9, 37)])
+@pytest.mark.parametrize("nin", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
+    """H and W not multiples of the 8x32 tile; f32 inputs are cast to
+    bf16 by the wrapper as by the plain version."""
+    g = torch.Generator().manual_seed(7 * nin + shape[2])
+    xs = [torch.randn(shape + (128,), generator=g).to(dev, dtype)
+          for _ in range(nin)]
+    ws = [(0.05 * torch.randn((3, 3, 128, 128), generator=g)).to(dev, dtype)
+          for _ in range(nin)]
+    raw = TB.conv3x3_bd_raw if nin == 1 else TB.conv3x3_bd2in_raw
+    plain = TB.conv3x3_bd_plain if nin == 1 else TB.conv3x3_bd2in_plain
+    n = raw.launches
+    y32, s1, s2 = raw(*xs, *ws, stats=True, out_dtype=torch.float32)
+    y16 = raw(*xs, *ws, out_dtype=torch.bfloat16)
+    yd = raw(*xs, *ws)
+    torch.cuda.synchronize()
+    assert raw.launches == n + 3
+    ry, rs1, rs2 = plain(*xs, *ws, stats=True, out_dtype=torch.float32)
+    assert y16.dtype == torch.bfloat16 and yd.dtype == dtype
+    assert s1.shape == s2.shape == (shape[0], 128)
+    assert _rel(y32, ry) <= 1e-4
+    assert _rel(y16, ry) <= 1e-2
+    assert _rel(yd, ry) <= (1e-4 if dtype == torch.float32 else 1e-2)
+    _assert_sums_close(s1, rs1)
+    _assert_sums_close(s2, rs2)
