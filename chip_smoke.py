@@ -8,14 +8,17 @@ Phases, each fatal on failure:
   2. kernels: each hand-written kernel against its plain PyTorch version at
      N=4, 512x512 (bf16 and f32): the conv with bias+ReLU on and off, the
      conv with the BatchNorm-stats epilogue (one and two inputs), the weight
-     gradient; and at the shapes the main paths give them, bf16: the
+     gradient (also bf16 at a ragged 520x516, twice, bit-identical); and at
+     the shapes the main paths give them, bf16: the
      serving epilogue at the HTTP batch (8 frames -> N=16 packed samples),
      the stats epilogue and the weight gradient at the training batch
      (8 -> N=16). Then timed beside its plain version, a one-call library
      yardstick and its bound, each compared again on the inputs it is
      timed on: the serving epilogue at the serving shape of bench.py
      (batch 32 -> N=64), the stats epilogue and the weight gradient at the
-     training shape.
+     training shape (the weight gradient and its cuDNN yardstick with the
+     L2 cache flushed before each call, beside the profiler's device
+     time).
   3. serving: the weight-shared Onet at full width (base 64, seeded random
      weights and BN statistics), BN-folded, behind the HTTP daemon on
      localhost, bf16, pair-packed path; 3 POST /segment requests of
@@ -56,7 +59,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms
+from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms, flush_l2
 
 SEED = 1981
 H = W = 512
@@ -109,6 +112,23 @@ def bound(nin: int, n: int, dtype, *, stats=False, dw=False) -> tuple:
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time of one call from torch.profiler: the sum over its
+    kernels, mean of ``reps`` calls, each after an L2 flush (the flush's
+    own kernel left out). No host work between the kernels counts."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            flush_l2(i)
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "FillFunctor" not in e.key) / 1e3 / reps
 
 
 def breakdown(fn, label: str, top: int = 10):
@@ -225,7 +245,9 @@ def check_kernels(TC, dev) -> dict:
 
 def check_train_kernels(TC, dev):
     """The stats epilogue (nin 1 and 2, no bias/ReLU, as training runs it)
-    and dw at N=4, 512x512, in f32 and bf16. The training shape (N=16,
+    and dw at N=4, 512x512, in f32 and bf16; dw in bf16 at a ragged shape
+    (520x516: the width is not a multiple of the kernel's 64-pixel strip)
+    and twice on the same inputs (bit-identical). The training shape (N=16,
     bf16) is compared where it is timed, in time_train_kernels."""
     for dtype in (torch.float32, torch.bfloat16):
         xs, ws, _, _ = kernel_inputs(TC, 4, dtype, dev, seed=SEED + 2)
@@ -233,6 +255,13 @@ def check_train_kernels(TC, dev):
             conv_err(TC, name, xs, ws, None,
                      f"{name}+stats N=4 {str(dtype)[6:]}", stats=True)
         dw_err(TC, xs[0], xs[1], f"conv3x3_wp_dw N=4 {str(dtype)[6:]}")
+    g = torch.Generator().manual_seed(SEED + 4)
+    x, dy = [torch.randn((3, 520, 258, 128), generator=g,
+                         dtype=torch.bfloat16).to(dev) for _ in range(2)]
+    dw_err(TC, x, dy, "conv3x3_wp_dw (3, 520, 516) bf16")
+    if not torch.equal(TC.conv3x3_wp_dw(x, dy), TC.conv3x3_wp_dw(x, dy)):
+        raise AssertionError("conv3x3_wp_dw differs between two calls")
+    log("[check] conv3x3_wp_dw (3, 520, 516) bf16: two calls bit-identical")
 
 
 def time_train_kernels(TC, dev) -> tuple:
@@ -242,7 +271,11 @@ def time_train_kernels(TC, dev) -> tuple:
     Library yardsticks, never called by the port: for conv+stats cuDNN's
     conv alone (no call computes the conv with its statistics); for dw
     cuDNN's weight gradient (aten.convolution_backward, output mask
-    [False, False, True]) on the unpacked channels-last tensors."""
+    [False, False, True]) on the unpacked channels-last tensors. dw and
+    its yardstick are timed with the L2 cache flushed before each call
+    (cold, as a train step finds them) and also by the profiler's device
+    time (no host work inside); the other rows keep warm CUDA-event
+    timing, comparable with their history."""
     n, dtype = N_TRAIN, torch.bfloat16
     xs, ws, w64, _ = kernel_inputs(TC, n, dtype, dev, seed=SEED + 3)
     out, errs = {}, {}
@@ -273,21 +306,28 @@ def time_train_kernels(TC, dev) -> tuple:
             f"bound {b_ms:.3f} ms ({b_by})")
     x, dy = xs
     errs["conv3x3_wp_dw"] = dw_err(TC, x, dy, f"conv3x3_wp_dw N={n} bf16")
-    ms = cuda_ms(lambda: TC.conv3x3_wp_dw(x, dy))
+    kernel = lambda: TC.conv3x3_wp_dw(x, dy)
+    ms = cuda_ms(kernel, flush=True)
+    dev_ms = device_ms(kernel)
     plain_ms = cuda_ms(lambda: TC.conv3x3_wp_dw_plain(x, dy), reps=3,
                        warmup=1)
     torch.cuda.empty_cache()
     w_lib = w64[0].to(dev, dtype).permute(3, 2, 0, 1).contiguous()
-    lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+    library = lambda: torch.ops.aten.convolution_backward(
         unpacked[1], unpacked[0], w_lib, None, [1, 1], [1, 1], [1, 1], False,
-        [0, 0], 1, [False, False, True]))
+        [0, 0], 1, [False, False, True])
+    lib_ms = cuda_ms(library, flush=True)
+    lib_dev_ms = device_ms(library)
     b_ms, b_by = bound(1, n, dtype, dw=True)
     out["conv3x3_wp_dw"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by, library_call="aten.convolution_backward, dw only")
-    log(f"[time] conv3x3_wp_dw N={n} {H}x{W} bf16: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, cuDNN weight gradient {lib_ms:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by})")
+        bound_by=b_by, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        library_call="aten.convolution_backward, dw only", l2="cold")
+    log(f"[time] conv3x3_wp_dw N={n} {H}x{W} bf16, cold L2: kernel {ms:.3f} "
+        f"ms (profiler device {dev_ms:.3f}), plain {plain_ms:.3f} ms, cuDNN "
+        f"weight gradient {lib_ms:.3f} ms (device {lib_dev_ms:.3f}), bound "
+        f"{b_ms:.3f} ms ({b_by}); kernel at {b_ms / ms:.1%} of its bound, "
+        f"cuDNN at {b_ms / lib_ms:.1%}")
     return out, errs
 
 
@@ -926,6 +966,9 @@ def main() -> int:
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
+    for line in _build.LOGS.get("conv_wp_dw", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"[build] conv_wp_dw ptxas: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -14,62 +14,59 @@
 // with K = the pixels: every multiply is useful.
 //
 // What bounds it on the H100. At the training shape (N=16 packed samples,
-// 512x512) one call is 0.31 TFLOP against 1.07 GB of bf16 x and dy: about
-// 0.31 ms of tensor-core time at 989 TFLOP/s and 0.32 ms of HBM time at
-// 3.35 TB/s. The design reads every byte once from HBM:
-//   * persistent CTAs (a grid the size of the card) walk 4-row x 32-pixel
-//     tiles; each stages the (4+2) x (32+2) x 64 x window, halo included and
-//     zero outside the image, and the 4 x 32 x 64 dy tile in shared memory;
-//   * 9 warps, one per tap: warp (dr, dc) multiplies the window shifted by
-//     (dr, dc), read as a col-major 16x16 WMMA A fragment (channels x
-//     pixels), by the dy tile (pixels x channels) into its 64x64 tap, held
-//     as 4x4 f32 accumulator fragments in registers (4 A and 4 B fragment
-//     loads per 16 products);
-//   * after each tile the warp adds its fragments into the CTA's running
-//     9x64x64 f32 totals in shared memory (147 KB, kept in fragment order,
-//     so no layout is assumed) and starts the next tile from zero. The
-//     tensor cores add into the accumulator without rounding to nearest, a
-//     bias of up to an ulp of the accumulator per product step: carried
-//     across a CTA's ~2000 steps at the training shape it grows to ~5e-5
-//     of the sum, while 8 steps per tile and a rounded f32 add per tile keep
-//     it near 1e-6;
+// 512x512) one call is 0.31 TFLOP against 1.07 GB of bf16 x and dy: 0.313
+// ms of tensor-core time at 989 TFLOP/s and 0.321 ms of HBM time at
+// 3.35 TB/s. The two bounds are nearly equal, so loads and products have to
+// overlap. The bf16 design (dw_bf16):
+//   * work: the image rows of every 64-pixel column strip, strip after
+//     strip, numbered g = (b * strips + strip) * H + r; persistent CTAs,
+//     one per SM, each take an equal contiguous range of g (no wave tail)
+//     and walk it as segments, a segment being the part of the range that
+//     lies in one strip. A right-edge strip narrower than 64 pixels and the
+//     image's top and bottom rows are masked by zero-filled loads, so any H
+//     and any W (a multiple of 4) work;
+//   * loads: cp.async (16 bytes, zero-fill through the source-size operand
+//     outside the image) into a ring in shared memory: STAGES = 4 dy rows of
+//     64 pixels and STAGES + 2 = 6 x rows of 66 pixels (the +-1 halo). Each
+//     x row is fetched once and serves the three dr taps of three output
+//     rows. One commit group per output row; row j + 3 is in flight while
+//     row j multiplies (cp.async.wait_group 2, one barrier per row). The
+//     128-byte pixel rows are XOR-swizzled (16-byte chunk ^ pixel % 8), so
+//     ldmatrix and the copies are free of bank conflicts;
+//   * products: mma.sync.m16n8k16 bf16 -> f32 in inline PTX, fed by
+//     ldmatrix.x4.trans: A = the shifted x view (ci x pixels) read from the
+//     [pixel][ci] rows (any 16-byte-aligned row address, so the dc shift
+//     costs nothing), B = dy (pixels x co). 12 warps: warp (dr, 16 ci) holds
+//     the three dc taps x 8 co tiles, 24 m16n8 f32 tiles = 96 accumulator
+//     registers a thread; per k16 step 4 B and 3 A ldmatrix.x4 feed 24 mma;
+//   * totals: the tensor cores add into the accumulator without rounding to
+//     nearest (a bias of up to an ulp of the accumulator per step, 1.2e-5
+//     of max|dw| over a CTA's ~2000 steps unflushed), so every FLUSH_ROWS =
+//     16 rows (64 k16 steps, 1024 pixels) each thread adds its accumulators
+//     into its own slots of the CTA's 9x64x64 f32 totals in shared memory
+//     (147 KB; the ring takes the other 83 KB of the block's 227 KB) and
+//     restarts them from zero;
 //   * at the end each CTA stores its totals as its partial to a
 //     [grid][9][64][64] buffer, and a second kernel, dw_reduce, sums the
 //     partials in CTA order. Deterministic, where atomicAdd into dw would
 //     not be; the partials are 19 MB at 132 CTAs, 2% of the call's bytes.
-// Loads are synchronous 16-byte loads and there is one CTA per SM: load and
-// compute do not overlap. cp.async/TMA, wgmma and overlap are later work.
+// Registers and spills: nvcc -Xptxas -v, printed by chip_smoke.py; PERF.md
+// records them. The product landed is mma.sync (not wgmma).
 //
-// f32 inputs take a CUDA-core path (the float32 policy): the same tiles and
-// partials; thread (tap, ci-group of 8, co-group of 16) keeps 128 f32
-// accumulators and does exact f32 FMAs.
+// f32 inputs take a CUDA-core path (the float32 policy): 4-row x 32-pixel
+// tiles staged by synchronous loads, one warp per tap; thread (tap, ci-group
+// of 8, co-group of 16) keeps 128 f32 accumulators and does exact f32 FMAs;
+// the same partials and reduce.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int C = 64;             // channels per branch at the packed levels
-constexpr int TH = 4;             // tile rows
-constexpr int TW = 32;            // tile pixels per row
 constexpr int TAPS = 9;
-constexpr int THREADS = 32 * TAPS;  // one warp per tap
-constexpr int SROWS = TH + 2;
-constexpr int SCOLS = TW + 2;
-constexpr int XS_B = 80;          // bf16 window pixel stride (elements)
-constexpr int DS_B = 72;          // bf16 dy pixel stride (elements)
-constexpr int XS_F = 68;          // f32 strides
-constexpr int DS_F = 68;
-constexpr int X_BYTES_B = SROWS * SCOLS * XS_B * 2;
-constexpr int D_BYTES_B = TH * TW * DS_B * 2;
-constexpr int X_BYTES_F = SROWS * SCOLS * XS_F * 4;
-constexpr int D_BYTES_F = TH * TW * DS_F * 4;
 constexpr int PART = TAPS * C * C;  // floats of one CTA's partial
-constexpr int T_BYTES_B = PART * 4;  // bf16 path: the CTA's totals
 
 struct Args {
   const void* x;     // NHWC [n, h, w, 64]
@@ -77,6 +74,227 @@ struct Args {
   float* part;       // [gridDim.x][9][64][64]
   int n, h, w;
 };
+
+// ---------------------------------------------------------------------------
+// bf16: cp.async ring, ldmatrix and mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int SW = 64;               // strip width, pixels
+constexpr int STAGES = 4;            // dy rows in the ring
+constexpr int XR = STAGES + 2;       // x rows in the ring
+constexpr int PIX = C * 2;           // bytes of one bf16 pixel
+constexpr int XROW = (SW + 2) * PIX;  // bytes of one staged x row
+constexpr int DROW = SW * PIX;
+constexpr int B_WARPS = 12;          // warp (dr, 16 input channels)
+constexpr int B_THREADS = 32 * B_WARPS;
+constexpr int ACC = 3 * 8 * 4;       // f32 accumulators a thread: 96
+constexpr int FLUSH_ROWS = 16;       // rows (4 k16 steps each) per chain
+constexpr int TOT_BYTES = ACC * B_THREADS * 4;
+constexpr int SMEM_B = TOT_BYTES + XR * XROW + STAGES * DROW;
+static_assert(ACC * B_THREADS == PART, "the warps hold the whole output");
+static_assert(SMEM_B <= 232448, "227 KB of shared memory a block");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 writes 16 zero bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk v of staged pixel q in a swizzled row.
+__device__ __forceinline__ uint32_t swz(int q, int v) {
+  return q * PIX + ((v ^ (q & 7)) << 4);
+}
+
+// Issue the copies of image row r (zero outside 0..h-1) of strip c0 into a
+// ring row: x with the halo (pixels c0-1 .. c0+SW), or dy (c0 .. c0+SW-1).
+template <bool HALO>
+__device__ __forceinline__ void load_row(uint32_t dst,
+                                         const __nv_bfloat16* __restrict__ src,
+                                         int b, int r, int c0, int h, int w) {
+  constexpr int NPIX = HALO ? SW + 2 : SW;
+  const int lo = HALO ? c0 - 1 : c0;
+  const bool row_ok = r >= 0 && r < h;
+  const __nv_bfloat16* row = src + ((size_t)b * h + (row_ok ? r : 0)) * w * C;
+  for (int i = threadIdx.x; i < NPIX * 8; i += B_THREADS) {
+    const int q = i >> 3, v = i & 7;
+    const int c = lo + q;
+    const bool ok = row_ok && c >= 0 && c < w;
+    cp_async16(dst + swz(q, v), ok ? row + (size_t)c * C + v * 8 : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(B_THREADS, 1)
+dw_bf16(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // totals: slot k of thread t at k * B_THREADS + t (each thread its own)
+  float* tot = reinterpret_cast<float*>(smem);
+  const uint32_t xring = smem_addr(smem + TOT_BYTES);
+  const uint32_t dring = xring + XR * XROW;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  const __nv_bfloat16* dy = static_cast<const __nv_bfloat16*>(a.dy);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int dr = warp >> 2, mb = warp & 3;
+  // ldmatrix.x4: lane feeds row i of 8x8 matrix mi
+  const int mi = lane >> 3, li = lane & 7;
+  // B (dy, [pixel][co]): matrices (k lo, n lo) (k hi, n lo) (k lo, n hi)
+  // (k hi, n hi) of a pair of 8-co tiles
+  const int kb = (mi & 1) * 8 + li, nb = mi >> 1;
+  // A (x, [pixel][ci]): (m lo, k lo) (m hi, k lo) (m lo, k hi) (m hi, k hi)
+  const int ka = (mi >> 1) * 8 + li, ca = mb * 2 + (mi & 1);
+
+  float acc[3][8][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int k = 0; k < ACC; ++k) tot[k * B_THREADS + threadIdx.x] = 0.f;
+
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[((i * 8 + j) * 4 + e) * B_THREADS + threadIdx.x] += acc[i][j][e];
+          acc[i][j][e] = 0.f;
+        }
+  };
+
+  const int h = a.h, w = a.w;
+  const int strips = (w + SW - 1) / SW;
+  const long total = (long)a.n * strips * h;
+  long g = total * blockIdx.x / gridDim.x;
+  const long g_end = total * (blockIdx.x + 1) / gridDim.x;
+  int chain = 0;  // rows in the accumulators since the last flush
+  while (g < g_end) {
+    // one segment: rows ra .. rb-1 of strip s of image b
+    const long bs = g / h;
+    const int ra = (int)(g - bs * h);
+    const int rb = (int)((g_end - bs * h) < h ? (g_end - bs * h) : h);
+    const int b = (int)(bs / strips), c0 = (int)(bs % strips) * SW;
+    const int len = rb - ra;
+    // ring row of x offset o (image row ra - 1 + o), of dy step j (row ra+j)
+    auto xrow = [&](int o) { return xring + (o % XR) * XROW; };
+    auto drow = [&](int j) { return dring + (j % STAGES) * DROW; };
+
+    // prologue: groups 0 .. STAGES-2; group j holds dy row ra+j and x row
+    // ra+j+1, group 0 also x rows ra-1 and ra
+    load_row<true>(xrow(0), x, b, ra - 1, c0, h, w);
+    load_row<true>(xrow(1), x, b, ra, c0, h, w);
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (j < len) {
+        load_row<true>(xrow(j + 2), x, b, ra + j + 1, c0, h, w);
+        load_row<false>(drow(j), dy, b, ra + j, c0, h, w);
+      }
+      cp_commit();
+    }
+
+    for (int j = 0; j < len; ++j) {
+      cp_wait<STAGES - 2>();  // group j has landed, for this thread
+      __syncthreads();        // ... and for all; row j-1 is done with
+      const int jn = j + STAGES - 1;
+      if (jn < len) {
+        load_row<true>(xrow(jn + 2), x, b, ra + jn + 1, c0, h, w);
+        load_row<false>(drow(jn), dy, b, ra + jn, c0, h, w);
+      }
+      cp_commit();
+
+      // output row ra+j reads x row ra+j+dr-1 = offset j+dr
+      const uint32_t xa = xrow(j + dr), da = drow(j);
+#pragma unroll
+      for (int ks = 0; ks < SW / 16; ++ks) {
+        uint32_t bf[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          ldsm_x4_t(bf[q], da + swz(ks * 16 + kb, q * 2 + nb));
+#pragma unroll
+        for (int dc = 0; dc < 3; ++dc) {
+          uint32_t af[4];
+          ldsm_x4_t(af, xa + swz(ks * 16 + ka + dc, ca));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            mma_bf16(acc[dc][2 * q], af, bf[q][0], bf[q][1]);
+            mma_bf16(acc[dc][2 * q + 1], af, bf[q][2], bf[q][3]);
+          }
+        }
+      }
+      if (++chain == FLUSH_ROWS) {
+        flush();
+        chain = 0;
+      }
+    }
+    __syncthreads();  // the next segment's prologue refills the ring
+    g += len;
+  }
+  cp_wait<0>();
+  flush();
+
+  // the partial: tile (dc, nt) of warp (dr, mb) holds ci = mb*16 + lane/4
+  // (+8 for e >= 2), co = nt*8 + 2*(lane%4) + (e & 1)
+  float* p = a.part + (size_t)blockIdx.x * PART;
+#pragma unroll
+  for (int dc = 0; dc < 3; ++dc)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int k = ((dc * 8 + nt) * 4 + 2 * hi) * B_THREADS + threadIdx.x;
+        const int ci = mb * 16 + (lane >> 2) + 8 * hi;
+        const int co = nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(p + ((dr * 3 + dc) * C + ci) * C + co) =
+            make_float2(tot[k], tot[k + B_THREADS]);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, exact float32 products
+// ---------------------------------------------------------------------------
+
+constexpr int TH = 4;             // tile rows
+constexpr int TW = 32;            // tile pixels per row
+constexpr int THREADS = 32 * TAPS;  // one warp per tap
+constexpr int SROWS = TH + 2;
+constexpr int SCOLS = TW + 2;
+constexpr int XS_F = 68;          // f32 window pixel and dy pixel strides
+constexpr int DS_F = 68;
+constexpr int X_BYTES_F = SROWS * SCOLS * XS_F * 4;
+constexpr int D_BYTES_F = TH * TW * DS_F * 4;
 
 struct Tile {
   int b, r0, c0;
@@ -111,89 +329,6 @@ __device__ void load_block(T* dst, const T* __restrict__ src, const Tile& t,
     *reinterpret_cast<uint4*>(dst + (sr * cols + sc) * STRIDE + v * VEC) = val;
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16: WMMA on the tensor cores
-// ---------------------------------------------------------------------------
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__global__ void __launch_bounds__(THREADS)
-dw_bf16(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(smem + X_BYTES_B);
-  // totals in fragment order: element e of fragment f of thread t at
-  // (f * 8 + e) * THREADS + t (conflict-free; each thread owns its own)
-  float* tot = reinterpret_cast<float*>(smem + X_BYTES_B + D_BYTES_B);
-  const int tap = threadIdx.x / 32;
-  const int dr = tap / 3, dc = tap % 3;
-
-  FragC acc[4][4];
-  static_assert(FragC::num_elements == 8, "16x16 f32 fragment: 8 per lane");
-  for (int k = 0; k < 16 * 8; ++k) tot[k * THREADS + threadIdx.x] = 0.f;
-
-  const long tiles = (long)a.n * ((a.h + TH - 1) / TH) * ((a.w + TW - 1) / TW);
-  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile t = tile_of(tile, a);
-    load_block<__nv_bfloat16, XS_B>(
-        xs, static_cast<const __nv_bfloat16*>(a.x), t, -1, SROWS, SCOLS,
-        a.h, a.w);
-    load_block<__nv_bfloat16, DS_B>(
-        ds, static_cast<const __nv_bfloat16*>(a.dy), t, 0, TH, TW, a.h, a.w);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    // K runs over the tile's pixels, 16 at a time: (row rr, half hh)
-    for (int rr = 0; rr < TH; ++rr) {
-#pragma unroll
-      for (int hh = 0; hh < TW / 16; ++hh) {
-        // output pixel (rr, hh*16 + k) reads window (rr + dr, hh*16 + k + dc)
-        const __nv_bfloat16* xr =
-            xs + ((rr + dr) * SCOLS + hh * 16 + dc) * XS_B;
-        const __nv_bfloat16* dp = ds + (rr * TW + hh * 16) * DS_B;
-        FragA fa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::load_matrix_sync(fa[i], xr + i * 16, XS_B);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, dp + j * 16, DS_B);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < 16; ++f)
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        tot[(f * 8 + e) * THREADS + threadIdx.x] += acc[f / 4][f % 4].x[e];
-    __syncthreads();     // the window and dy tile are reloaded next tile
-  }
-
-  float* p = a.part + (size_t)blockIdx.x * PART + (size_t)tap * C * C;
-#pragma unroll
-  for (int f = 0; f < 16; ++f) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      acc[f / 4][f % 4].x[e] = tot[(f * 8 + e) * THREADS + threadIdx.x];
-    wmma::store_matrix_sync(p + (f / 4) * 16 * C + (f % 4) * 16,
-                            acc[f / 4][f % 4], C, wmma::mem_row_major);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores, exact float32 products
-// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
 dw_f32(const Args a) {
@@ -263,46 +398,44 @@ __global__ void dw_reduce(const float* __restrict__ part, float* dw,
   dw[i] = s;
 }
 
-cudaError_t grid_of(int n, int h, int w, int in_bf16, int* grid, int* smem) {
-  void (*kern)(const Args) = in_bf16 ? dw_bf16 : dw_f32;
-  *smem = in_bf16 ? X_BYTES_B + D_BYTES_B + T_BYTES_B : X_BYTES_F + D_BYTES_F;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, *smem)) != cudaSuccess)
-    return err;
-  const long tiles = (long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  long g = (long)sms * (per_sm > 0 ? per_sm : 1);
-  *grid = (int)(g < tiles ? g : tiles);
-  return cudaSuccess;
-}
-
 }  // namespace
 
-// The number of CTA partials the launch needs: the wrapper allocates
-// `part` as that many [9][64][64] f32 blocks. Negative: -(CUDA error).
+// Set up the kernel of the dtype on the current device and return the
+// number of CTA partials a launch at this shape uses: the wrapper allocates
+// `part` as that many [9][64][64] f32 blocks, and calls this once per
+// (device, shape, dtype). Negative: -(CUDA error).
 extern "C" int onet_conv3x3_wp_dw_blocks(int n, int h, int w, int in_bf16) {
-  int grid = 0, smem = 0;
-  cudaError_t err = grid_of(n, h, w, in_bf16, &grid, &smem);
-  return err == cudaSuccess ? grid : -(int)err;
+  void (*kern)(const Args) = in_bf16 ? dw_bf16 : dw_f32;
+  const int smem = in_bf16 ? SMEM_B : X_BYTES_F + D_BYTES_F;
+  const int threads = in_bf16 ? B_THREADS : THREADS;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return -(int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, threads, smem)) != cudaSuccess)
+    return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  // bf16: one CTA per SM over the strip rows; f32: over the tiles
+  const long work = in_bf16
+      ? (long)n * ((w + SW - 1) / SW) * h
+      : (long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  const long g = (long)sms * per_sm;
+  return (int)(g < work ? g : work);
 }
 
 // Launch on `stream`; returns the CUDA error code (0 on success). x and dy
 // are contiguous NHWC [n, h, w, 64] (bf16 or f32, 16-byte aligned), part
-// holds `nblk` partials from onet_conv3x3_wp_dw_blocks, dw [9*64*64] f32.
+// holds `nblk` partials from onet_conv3x3_wp_dw_blocks (any nblk >= 0 is
+// right: the kernels share the work out by gridDim), dw [9*64*64] f32. No
+// host query: the set-up call made the kernel launchable.
 extern "C" int onet_conv3x3_wp_dw(const void* x, const void* dy, float* part,
                                   float* dw, int n, int h, int w, int in_bf16,
                                   int nblk, void* stream) {
-  int grid = 0, smem = 0;
-  cudaError_t err = grid_of(n, h, w, in_bf16, &grid, &smem);
-  if (err != cudaSuccess) return (int)err;
-  if (grid != nblk) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
   a.dy = dy;
@@ -311,13 +444,14 @@ extern "C" int onet_conv3x3_wp_dw(const void* x, const void* dy, float* part,
   a.h = h;
   a.w = w;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (grid > 0) {
+  if (nblk > 0) {
     if (in_bf16)
-      dw_bf16<<<grid, THREADS, smem, st>>>(a);
+      dw_bf16<<<nblk, B_THREADS, SMEM_B, st>>>(a);
     else
-      dw_f32<<<grid, THREADS, smem, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      dw_f32<<<nblk, THREADS, X_BYTES_F + D_BYTES_F, st>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  dw_reduce<<<(PART + 255) / 256, 256, 0, st>>>(part, dw, grid);
+  dw_reduce<<<(PART + 255) / 256, 256, 0, st>>>(part, dw, nblk);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``. The build runs at first
 use, into ``onet_tpu_torch/_build/`` (listed in ``.gitignore``); the file
 name carries a hash of the source and flags, so an edited source rebuilds.
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once, and keeps each
+one's output (with ``-Xptxas -v``: every kernel's registers and spills) in
+``LOGS``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC"]
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+# nvcc's output of each source built by this process (ptxas: registers,
+# shared memory and spills of every kernel)
+LOGS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -67,6 +72,7 @@ def build_all() -> list:
         if proc is None:
             continue
         log = proc.communicate()[0].decode(errors="replace")
+        LOGS[name] = log
         tmp = cmd[cmd.index("-o") + 1]
         if proc.returncode:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")

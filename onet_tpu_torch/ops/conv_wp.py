@@ -35,6 +35,7 @@ weights, dw through ``conv3x3_wp_dw``; s1 and s2 carry no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -258,13 +259,9 @@ def _launch(xs, taps, bias, bias_relu, stats, out_dtype):
     return (y, s1, s2) if stats else y
 
 
-def _launch_dw(x, dy):
-    """Run csrc/conv_wp_dw.cu on CUDA tensors; returns dw [3, 3, 64, 64]."""
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv_wp_dw kernel takes bf16 or f32, got {x.dtype}")
-    dev = x.device
-    n, h, wp, _ = x.shape
-    bf16 = int(x.dtype == torch.bfloat16)
+@functools.cache
+def _dw_lib():
+    """csrc/conv_wp_dw.cu's two C functions, their signatures set once."""
     lib = _build.load("conv_wp_dw")
     blocks = lib.onet_conv3x3_wp_dw_blocks
     blocks.argtypes = [ctypes.c_int] * 4
@@ -273,11 +270,33 @@ def _launch_dw(x, dy):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return blocks, fn
+
+
+@functools.cache
+def _dw_blocks(device_index: int, n: int, h: int, w: int, bf16: int) -> int:
+    """The kernel's set-up on one card, once per shape and dtype: its
+    shared-memory attribute, and the number of CTA partials (raises on a
+    CUDA error, which is then not cached)."""
+    with torch.cuda.device(device_index):
+        nblk = _dw_lib()[0](n, h, w, bf16)
+    if nblk < 0:
+        raise RuntimeError(f"conv_wp_dw kernel setup failed: CUDA error "
+                           f"{-nblk}")
+    return nblk
+
+
+def _launch_dw(x, dy):
+    """Run csrc/conv_wp_dw.cu on CUDA tensors; returns dw [3, 3, 64, 64]."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv_wp_dw kernel takes bf16 or f32, got {x.dtype}")
+    dev = x.device
+    n, h, wp, _ = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    nblk = _dw_blocks(index, n, h, 2 * wp, bf16)
+    fn = _dw_lib()[1]
     with torch.cuda.device(dev):
-        nblk = blocks(n, h, 2 * wp, bf16)
-        if nblk < 0:
-            raise RuntimeError(f"conv_wp_dw kernel setup failed: CUDA error "
-                               f"{-nblk}")
         part = torch.empty((nblk, 3, 3, C, C), dtype=torch.float32,
                            device=dev)
         dw = torch.empty((3, 3, C, C), dtype=torch.float32, device=dev)

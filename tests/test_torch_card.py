@@ -118,9 +118,13 @@ def test_stats_epilogue_matches_plain(dev, shape, dtype, bias_relu):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16), (3, 12, 20), (1, 8, 4),
-                                   (5, 37, 72)])
+                                   (5, 37, 72), (1, 8, 18), (3, 40, 100),
+                                   (2, 520, 258)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dw_kernel_matches_plain(dev, shape, dtype):
+    """Packed (N, H, W/2): widths of 36, 200 and 516 pixels are not a
+    multiple of the bf16 kernel's 64-pixel strip, and the CTAs' row ranges
+    split strips at rows that depend on the shape."""
     xs, _, _ = _inputs(dev, dtype, *shape, seed=2)
     n = TC.conv3x3_wp_dw.launches
     dw = TC.conv3x3_wp_dw(xs[0], xs[1])
@@ -129,6 +133,15 @@ def test_dw_kernel_matches_plain(dev, shape, dtype):
     ref = TC.conv3x3_wp_dw_plain(xs[0], xs[1])
     assert dw.shape == (3, 3, 64, 64) and dw.dtype == torch.float32
     _assert_sums_close(dw, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_is_deterministic(dev, dtype):
+    """Two calls on the same inputs give the same bits: per-CTA partials
+    summed in CTA order, no atomics."""
+    xs, _, _ = _inputs(dev, dtype, 3, 40, 100, seed=6)
+    assert torch.equal(TC.conv3x3_wp_dw(xs[0], xs[1]),
+                       TC.conv3x3_wp_dw(xs[0], xs[1]))
 
 
 def test_dw_kernel_takes_non_contiguous_dy(dev):
