@@ -59,7 +59,8 @@ import urllib.request
 import numpy as np
 import torch
 
-from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms, flush_l2
+from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms
+from onet_tpu_torch.runs.dw_probe import cold_ms, device_ms
 
 SEED = 1981
 H = W = 512
@@ -112,23 +113,6 @@ def bound(nin: int, n: int, dtype, *, stats=False, dw=False) -> tuple:
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     t_bytes, t_ops = nbytes / HBM * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time of one call from torch.profiler: the sum over its
-    kernels, mean of ``reps`` calls, each after an L2 flush (the flush's
-    own kernel left out). No host work between the kernels counts."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            flush_l2(i)
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "FillFunctor" not in e.key) / 1e3 / reps
 
 
 def breakdown(fn, label: str, top: int = 10):
@@ -271,7 +255,7 @@ def time_train_kernels(TC, dev) -> tuple:
     Library yardsticks, never called by the port: for conv+stats cuDNN's
     conv alone (no call computes the conv with its statistics); for dw
     cuDNN's weight gradient (aten.convolution_backward, output mask
-    [False, False, True]) on the unpacked channels-last tensors. dw and
+    [False, True, False]) on the unpacked channels-last tensors. dw and
     its yardstick are timed with the L2 cache flushed before each call
     (cold, as a train step finds them) and also by the profiler's device
     time (no host work inside); the other rows keep warm CUDA-event
@@ -307,7 +291,7 @@ def time_train_kernels(TC, dev) -> tuple:
     x, dy = xs
     errs["conv3x3_wp_dw"] = dw_err(TC, x, dy, f"conv3x3_wp_dw N={n} bf16")
     kernel = lambda: TC.conv3x3_wp_dw(x, dy)
-    ms = cuda_ms(kernel, flush=True)
+    ms = cold_ms(kernel)
     dev_ms = device_ms(kernel)
     plain_ms = cuda_ms(lambda: TC.conv3x3_wp_dw_plain(x, dy), reps=3,
                        warmup=1)
@@ -315,8 +299,17 @@ def time_train_kernels(TC, dev) -> tuple:
     w_lib = w64[0].to(dev, dtype).permute(3, 2, 0, 1).contiguous()
     library = lambda: torch.ops.aten.convolution_backward(
         unpacked[1], unpacked[0], w_lib, None, [1, 1], [1, 1], [1, 1], False,
-        [0, 0], 1, [False, False, True])
-    lib_ms = cuda_ms(library, flush=True)
+        [0, 0], 1, [False, True, False])
+    # the yardstick must compute dw too: [co, ci, kh, kw] bf16 -> HWIO,
+    # within bf16 rounding of the plain version
+    ref = TC.conv3x3_wp_dw_plain(x, dy)
+    lib_rel = ((library()[1].permute(2, 3, 1, 0).float() - ref).abs().max()
+               / ref.abs().max()).item()
+    del ref
+    if not lib_rel <= 1e-2:
+        raise AssertionError(f"cuDNN's weight gradient is {lib_rel:.2e} of "
+                             "max|dw| off the plain version")
+    lib_ms = cold_ms(library)
     lib_dev_ms = device_ms(library)
     b_ms, b_by = bound(1, n, dtype, dw=True)
     out["conv3x3_wp_dw"] = dict(
@@ -325,7 +318,8 @@ def time_train_kernels(TC, dev) -> tuple:
         library_call="aten.convolution_backward, dw only", l2="cold")
     log(f"[time] conv3x3_wp_dw N={n} {H}x{W} bf16, cold L2: kernel {ms:.3f} "
         f"ms (profiler device {dev_ms:.3f}), plain {plain_ms:.3f} ms, cuDNN "
-        f"weight gradient {lib_ms:.3f} ms (device {lib_dev_ms:.3f}), bound "
+        f"weight gradient {lib_ms:.3f} ms (device {lib_dev_ms:.3f}, "
+        f"{lib_rel:.1e} of max|dw| from the plain version), bound "
         f"{b_ms:.3f} ms ({b_by}); kernel at {b_ms / ms:.1%} of its bound, "
         f"cuDNN at {b_ms / lib_ms:.1%}")
     return out, errs

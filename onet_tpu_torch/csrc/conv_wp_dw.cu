@@ -31,14 +31,23 @@
 //     x row is fetched once and serves the three dr taps of three output
 //     rows. One commit group per output row; row j + 3 is in flight while
 //     row j multiplies (cp.async.wait_group 2, one barrier per row). The
-//     128-byte pixel rows are XOR-swizzled (16-byte chunk ^ pixel % 8), so
-//     ldmatrix and the copies are free of bank conflicts;
-//   * products: mma.sync.m16n8k16 bf16 -> f32 in inline PTX, fed by
-//     ldmatrix.x4.trans: A = the shifted x view (ci x pixels) read from the
-//     [pixel][ci] rows (any 16-byte-aligned row address, so the dc shift
-//     costs nothing), B = dy (pixels x co). 12 warps: warp (dr, 16 ci) holds
-//     the three dc taps x 8 co tiles, 24 m16n8 f32 tiles = 96 accumulator
-//     registers a thread; per k16 step 4 B and 3 A ldmatrix.x4 feed 24 mma;
+//     128-byte pixel rows are XOR-swizzled as the tensor cores' 128-byte
+//     swizzle has it (16-byte chunk ^ bits 7..9 of the shared address);
+//   * products: wgmma.mma_async m64n192k16 bf16 -> f32, both operands read
+//     from shared memory through descriptors, MN-major (both transpose bits
+//     set). Three warpgroups, one per dr. A = dy^T: M = the 64 co, K = 16
+//     pixels. B = the shifted x views of the three dc taps side by side:
+//     N = (dc, ci), the descriptor's leading byte offset (between 64-wide
+//     blocks of N) one pixel row, 128 bytes, so block dc starts dc pixels
+//     on. Since the swizzle follows the address bits, a view that starts
+//     1, 2 or 3 rows past a 1024-byte boundary reads the right bytes with
+//     no base offset. Four wgmma a row per warpgroup, one commit group,
+//     waited for before the next row's barrier (the ring's next copies
+//     overwrite the slots of the row before);
+//   * registers: the m64n192 f32 tile, 96 a thread, is the accumulator;
+//     nothing else of the product sits in registers. nvcc -Xptxas -v
+//     (printed by chip_smoke.py, recorded in PERF.md) gives the count and
+//     shows no spills;
 //   * totals: the tensor cores add into the accumulator without rounding to
 //     nearest (a bias of up to an ulp of the accumulator per step, 1.2e-5
 //     of max|dw| over a CTA's ~2000 steps unflushed), so every FLUSH_ROWS =
@@ -50,8 +59,6 @@
 //     [grid][9][64][64] buffer, and a second kernel, dw_reduce, sums the
 //     partials in CTA order. Deterministic, where atomicAdd into dw would
 //     not be; the partials are 19 MB at 132 CTAs, 2% of the call's bytes.
-// Registers and spills: nvcc -Xptxas -v, printed by chip_smoke.py; PERF.md
-// records them. The product landed is mma.sync (not wgmma).
 //
 // f32 inputs take a CUDA-core path (the float32 policy): 4-row x 32-pixel
 // tiles staged by synchronous loads, one warp per tap; thread (tap, ci-group
@@ -76,7 +83,7 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: cp.async ring, ldmatrix and mma.sync on the tensor cores
+// bf16: cp.async ring, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int SW = 64;               // strip width, pixels
@@ -85,9 +92,8 @@ constexpr int XR = STAGES + 2;       // x rows in the ring
 constexpr int PIX = C * 2;           // bytes of one bf16 pixel
 constexpr int XROW = (SW + 2) * PIX;  // bytes of one staged x row
 constexpr int DROW = SW * PIX;
-constexpr int B_WARPS = 12;          // warp (dr, 16 input channels)
-constexpr int B_THREADS = 32 * B_WARPS;
-constexpr int ACC = 3 * 8 * 4;       // f32 accumulators a thread: 96
+constexpr int B_THREADS = 3 * 128;   // warpgroup dr = 0, 1, 2
+constexpr int ACC = 3 * C / 2;       // f32 accumulators a thread: 96
 constexpr int FLUSH_ROWS = 16;       // rows (4 k16 steps each) per chain
 constexpr int TOT_BYTES = ACC * B_THREADS * 4;
 constexpr int SMEM_B = TOT_BYTES + XR * XROW + STAGES * DROW;
@@ -114,27 +120,46 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// Shared address of 16-byte chunk v of the pixel row at shared address
+// `row` (128-byte aligned): the chunk index XOR bits 7..9 of the address,
+// the 128-byte swizzle of the tensor cores' shared-memory operands.
+__device__ __forceinline__ uint32_t swz(uint32_t row, int v) {
+  return row + ((v ^ ((row >> 7) & 7)) << 4);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// wgmma descriptor of an MN-major operand in the 128-byte swizzle starting
+// at shared address `addr`: 64 elements (one pixel row) along M or N, then
+// the next 64 at `lbo` bytes; 8 pixel rows along K, then the next 8 at 1024.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
 }
 
-// Byte offset of 16-byte chunk v of staged pixel q in a swizzled row.
-__device__ __forceinline__ uint32_t swz(int q, int v) {
-  return q * PIX + ((v ^ (q & 7)) << 4);
+#define ACC8(i)                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[96] += A^T-view x B-view, m64n192k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_n192(float (&d)[ACC], uint64_t a,
+                                           uint64_t b) {
+  // scale-d is a predicate operand: set true, D += A B
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)
+      : "l"(a), "l"(b));
 }
+
+#undef ACC8
 
 // Issue the copies of image row r (zero outside 0..h-1) of strip c0 into a
 // ring row: x with the halo (pixels c0-1 .. c0+SW), or dy (c0 .. c0+SW-1).
@@ -150,7 +175,8 @@ __device__ __forceinline__ void load_row(uint32_t dst,
     const int q = i >> 3, v = i & 7;
     const int c = lo + q;
     const bool ok = row_ok && c >= 0 && c < w;
-    cp_async16(dst + swz(q, v), ok ? row + (size_t)c * C + v * 8 : src, ok);
+    cp_async16(swz(dst + q * PIX, v), ok ? row + (size_t)c * C + v * 8 : src,
+               ok);
   }
 }
 
@@ -163,50 +189,37 @@ dw_bf16(const Args a) {
   const uint32_t dring = xring + XR * XROW;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   const __nv_bfloat16* dy = static_cast<const __nv_bfloat16*>(a.dy);
+  const int dr = threadIdx.x >> 7;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dr = warp >> 2, mb = warp & 3;
-  // ldmatrix.x4: lane feeds row i of 8x8 matrix mi
-  const int mi = lane >> 3, li = lane & 7;
-  // B (dy, [pixel][co]): matrices (k lo, n lo) (k hi, n lo) (k lo, n hi)
-  // (k hi, n hi) of a pair of 8-co tiles
-  const int kb = (mi & 1) * 8 + li, nb = mi >> 1;
-  // A (x, [pixel][ci]): (m lo, k lo) (m hi, k lo) (m lo, k hi) (m hi, k hi)
-  const int ka = (mi >> 1) * 8 + li, ca = mb * 2 + (mi & 1);
-
-  float acc[3][8][4];
+  float acc[ACC];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
   for (int k = 0; k < ACC; ++k) tot[k * B_THREADS + threadIdx.x] = 0.f;
 
   auto flush = [&]() {
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          tot[((i * 8 + j) * 4 + e) * B_THREADS + threadIdx.x] += acc[i][j][e];
-          acc[i][j][e] = 0.f;
-        }
+    for (int i = 0; i < ACC; ++i) {
+      tot[i * B_THREADS + threadIdx.x] += acc[i];
+      acc[i] = 0.f;
+    }
   };
 
+  // 32-bit index math: a 64-bit division is a called routine, and the
+  // registers live across the call spill (the host checks the count fits)
   const int h = a.h, w = a.w;
   const int strips = (w + SW - 1) / SW;
-  const long total = (long)a.n * strips * h;
-  long g = total * blockIdx.x / gridDim.x;
-  const long g_end = total * (blockIdx.x + 1) / gridDim.x;
+  const int total = a.n * strips * h;
+  const int q = total / gridDim.x, rem = total % gridDim.x;
+  const int bid = blockIdx.x;
+  int g = bid * q + min(bid, rem);
+  const int g_end = g + q + (bid < rem);
   int chain = 0;  // rows in the accumulators since the last flush
   while (g < g_end) {
     // one segment: rows ra .. rb-1 of strip s of image b
-    const long bs = g / h;
-    const int ra = (int)(g - bs * h);
-    const int rb = (int)((g_end - bs * h) < h ? (g_end - bs * h) : h);
-    const int b = (int)(bs / strips), c0 = (int)(bs % strips) * SW;
+    const int bs = g / h;
+    const int ra = g - bs * h;
+    const int rb = min(g_end - bs * h, h);
+    const int b = bs / strips, c0 = (bs % strips) * SW;
     const int len = rb - ra;
     // ring row of x offset o (image row ra - 1 + o), of dy step j (row ra+j)
     auto xrow = [&](int o) { return xring + (o % XR) * XROW; };
@@ -226,8 +239,10 @@ dw_bf16(const Args a) {
     }
 
     for (int j = 0; j < len; ++j) {
-      cp_wait<STAGES - 2>();  // group j has landed, for this thread
-      __syncthreads();        // ... and for all; row j-1 is done with
+      cp_wait<STAGES - 2>();  // group j has landed, for this thread;
+      // make it visible to the tensor cores (the async proxy) ...
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // ... for all threads; row j-1's wgmma are done
       const int jn = j + STAGES - 1;
       if (jn < len) {
         load_row<true>(xrow(jn + 2), x, b, ra + jn + 1, c0, h, w);
@@ -237,23 +252,13 @@ dw_bf16(const Args a) {
 
       // output row ra+j reads x row ra+j+dr-1 = offset j+dr
       const uint32_t xa = xrow(j + dr), da = drow(j);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < SW / 16; ++ks) {
-        uint32_t bf[4][4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          ldsm_x4_t(bf[q], da + swz(ks * 16 + kb, q * 2 + nb));
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          uint32_t af[4];
-          ldsm_x4_t(af, xa + swz(ks * 16 + ka + dc, ca));
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            mma_bf16(acc[dc][2 * q], af, bf[q][0], bf[q][1]);
-            mma_bf16(acc[dc][2 * q + 1], af, bf[q][2], bf[q][3]);
-          }
-        }
-      }
+      for (int ks = 0; ks < SW / 16; ++ks)
+        wgmma_n192(acc, desc(da + ks * 16 * PIX, DROW),
+                   desc(xa + ks * 16 * PIX, PIX));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       if (++chain == FLUSH_ROWS) {
         flush();
         chain = 0;
@@ -265,21 +270,20 @@ dw_bf16(const Args a) {
   cp_wait<0>();
   flush();
 
-  // the partial: tile (dc, nt) of warp (dr, mb) holds ci = mb*16 + lane/4
-  // (+8 for e >= 2), co = nt*8 + 2*(lane%4) + (e & 1)
+  // the partial: accumulator 4j + e of thread (warp wi of the warpgroup,
+  // lane) holds co = 16 wi + lane/4 + 8 (e >> 1) and column n = 8j +
+  // 2 (lane % 4) + (e & 1) of the 192, that is dc = n / 64, ci = n % 64
+  const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   float* p = a.part + (size_t)blockIdx.x * PART;
 #pragma unroll
-  for (int dc = 0; dc < 3; ++dc)
+  for (int j = 0; j < ACC / 4; ++j)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int k = ((dc * 8 + nt) * 4 + 2 * hi) * B_THREADS + threadIdx.x;
-        const int ci = mb * 16 + (lane >> 2) + 8 * hi;
-        const int co = nt * 8 + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(p + ((dr * 3 + dc) * C + ci) * C + co) =
-            make_float2(tot[k], tot[k + B_THREADS]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int co = wi * 16 + (lane >> 2) + 8 * (e >> 1);
+      const int n = 8 * j + 2 * (lane & 3) + (e & 1);
+      p[((dr * 3 + n / C) * C + n % C) * C + co] =
+          tot[(j * 4 + e) * B_THREADS + threadIdx.x];
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -424,6 +428,8 @@ extern "C" int onet_conv3x3_wp_dw_blocks(int n, int h, int w, int in_bf16) {
   const long work = in_bf16
       ? (long)n * ((w + SW - 1) / SW) * h
       : (long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  // the bf16 kernel numbers the strip rows with 32-bit ints
+  if (in_bf16 && work > INT32_MAX) return -(int)cudaErrorInvalidValue;
   const long g = (long)sms * per_sm;
   return (int)(g < work ? g : work);
 }

@@ -85,32 +85,12 @@ def site2_library(xa, xb, wa, wb):
                                        torch.cat([wa, wb], dim=2)))
 
 
-L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
-_l2_scratch: dict = {}
-
-
-def flush_l2(i: int = 0):
-    """Write L2_FLUSH_BYTES of scratch on the current card, evicting what the
-    L2 cache held (the inputs of an earlier call); its kernel's name holds
-    ``FillFunctor``."""
-    dev = torch.cuda.current_device()
-    if dev not in _l2_scratch:
-        _l2_scratch[dev] = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
-                                       device=dev)
-    _l2_scratch[dev].fill_(i & 0xFF)
-
-
-def cuda_ms(fn, reps: int = REPS, warmup: int = 2,
-            flush: bool = False) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events; with
-    ``flush``, the L2 cache is flushed before each call, outside the
-    events (a cold-L2 time)."""
+def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
+    """Median over ``reps`` single calls, each timed with CUDA events."""
     for _ in range(warmup):
         fn()
     times = []
-    for i in range(reps):
-        if flush:
-            flush_l2(i)
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
