@@ -46,8 +46,8 @@
 //     overwrite the slots of the row before);
 //   * registers: the m64n192 f32 tile, 96 a thread, is the accumulator;
 //     nothing else of the product sits in registers. nvcc -Xptxas -v
-//     (printed by chip_smoke.py, recorded in PERF.md) gives the count and
-//     shows no spills;
+//     (printed by chip_smoke.py): 168 registers, the cap for 384 threads
+//     at one CTA per SM, and no spills;
 //   * totals: the tensor cores add into the accumulator without rounding to
 //     nearest (a bias of up to an ulp of the accumulator per step, 1.2e-5
 //     of max|dw| over a CTA's ~2000 steps unflushed), so every FLUSH_ROWS =
@@ -59,6 +59,8 @@
 //     [grid][9][64][64] buffer, and a second kernel, dw_reduce, sums the
 //     partials in CTA order. Deterministic, where atomicAdd into dw would
 //     not be; the partials are 19 MB at 132 CTAs, 2% of the call's bytes.
+// The product is wgmma; an earlier version of this design fed mma.sync
+// through ldmatrix and took 1.35x as long on the H100 (PERF.md).
 //
 // f32 inputs take a CUDA-core path (the float32 policy): 4-row x 32-pixel
 // tiles staged by synchronous loads, one warp per tap; thread (tap, ci-group
@@ -196,16 +198,20 @@ dw_bf16(const Args a) {
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
   for (int k = 0; k < ACC; ++k) tot[k * B_THREADS + threadIdx.x] = 0.f;
 
+  // The empty asm every 16 accumulators keeps the compiler from loading
+  // many totals ahead of their adds: with all 96 accumulators live, that
+  // batching spilled registers.
   auto flush = [&]() {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
       tot[i * B_THREADS + threadIdx.x] += acc[i];
       acc[i] = 0.f;
+      if (i % 16 == 15) asm volatile("" ::: "memory");
     }
   };
 
-  // 32-bit index math: a 64-bit division is a called routine, and the
-  // registers live across the call spill (the host checks the count fits)
+  // strip rows numbered in 32 bits (the host checks the count fits): the
+  // divisions stay inline, where 64-bit ones are called routines
   const int h = a.h, w = a.w;
   const int strips = (w + SW - 1) / SW;
   const int total = a.n * strips * h;
