@@ -16,77 +16,408 @@
 // multiply is useful. The wrapper passes the taps [3][3][64][64] (HWIO),
 // sliced from Wc, whose blocks hold all nine.
 //
-// What bounds it on the H100. At the serving shape (N=64, 512x512, bf16) one
-// conv is 1.24 TFLOP against 4.3 GB of input and output: about 1.25 ms of
-// tensor-core time at 989 TFLOP/s and 1.28 ms of HBM time at 3.35 TB/s, so
-// both limits sit close together. The design keeps every byte read once from
-// HBM and the weights read once per CTA:
-//   * persistent CTAs (a grid the size of the card) walk the output tiles,
-//     so the 74 KB (one input) or 147 KB (two inputs) of bf16 taps are loaded
-//     into shared memory once per CTA, not once per tile;
-//   * a tile is 8 output rows x 32 pixels x 64 channels; its (8+2) x (32+2)
-//     input window, halo included, is staged in shared memory, zero-filled
-//     outside the image (SAME padding), and each input pixel is re-read from
-//     shared memory by the 9 taps, not from HBM;
-//   * each of the 8 warps owns one output row: 2x4 WMMA bf16 16x16x16
-//     fragments accumulate in f32 registers over 9 taps x 4 k-steps;
-//   * the epilogue goes fragment by fragment through a 1 KB per-warp slice
-//     of the (then idle) window buffer, adds the f32 bias, applies ReLU,
-//     casts, and stores 16-byte vectors.
-// Shared-memory rows are padded (80 and 72 elements) so the WMMA loads hit
-// few bank conflicts while keeping their 32-byte alignment. Loads are plain
-// synchronous 16-byte loads, not cp.async or TMA, and there is one CTA per SM:
-// load and compute do not overlap. That, and wgmma, are later work.
-//
-// Statistics across CTAs. The TPU kernel carried s1/s2 from one grid step to
-// the next; here a sample's tiles (1024 at 512x512) land on many CTAs in no
-// order. Each tile reduces its own 256 pixels in the epilogue: every lane
-// sums one channel column of the fragment scratch over the rows of one
-// parity (the per-warp scratch pass already visits every fragment), the
-// 8 warps meet in shared memory, and the tile writes its [256] partial
-// (s1 lanes, then s2 lanes) to a [tiles][256] f32 buffer. A second kernel,
-// stats_reduce, sums each sample's partials in a fixed order. Chosen over
-// atomicAdd because the result is then deterministic: the same inputs give
-// the same bits, run to run. Cost: 1 KB written and read back per tile,
-// 16 MB at N=16, 512x512, against 537 MB of bf16 output.
+// What bounds it on the H100. At the training shape (N=16 packed samples,
+// 512x512, bf16, stats) one conv is 0.31 TFLOP against 1.07 GB of input and
+// output: 0.313 ms of tensor-core time at 989 TFLOP/s and 0.321 ms of HBM
+// time at 3.35 TB/s; with two inputs 0.625 ms of operations against 0.481 ms
+// of bytes; at the serving shape (N=64) four times that. Both limits sit
+// close together, so every x byte is read once from HBM and loads overlap
+// the products. The bf16 design (conv_wp_bf16<NIN>):
+//   * work: the image rows of every 64-pixel column strip, strip after
+//     strip, numbered g = (b * strips + strip) * H + r; persistent CTAs,
+//     one per SM, each take an equal contiguous range of g (no wave tail)
+//     and walk it as segments, a segment being the part of the range that
+//     lies in one strip. A right-edge strip narrower than 64 pixels and the
+//     image's top and bottom rows are masked by zero-filled loads (SAME
+//     padding) and masked stores, so any H and any W = 2 Wp work;
+//   * loads: cp.async (16 bytes, zero-fill through the source-size operand
+//     outside the image) into a ring in shared memory of x rows of 66
+//     pixels (the +-1 halo), 8,448 bytes each: XR = 10 rows with one input,
+//     4 rows of each input with two. Each x row is fetched once from HBM
+//     and serves the three dr taps of three output rows. One commit group
+//     per output row; XR - 3 groups (7 rows, or 1 row of each input) are in
+//     flight while a row multiplies (cp.async.wait_group XR - 4, one
+//     barrier per row). The 128-byte pixel rows are XOR-swizzled as the
+//     tensor cores' 128-byte swizzle has it (16-byte chunk ^ bits 7..9 of
+//     the shared address), so a pixel shift dc is a start dc * 128 bytes
+//     on, with no copy;
+//   * taps: each input's nine taps, loaded once per CTA and transposed to
+//     [tap][co][ci] (ci contiguous, the same swizzle): 73,728 bytes an
+//     input;
+//   * products: two warpgroups (256 threads) share an output row of the
+//     strip, M = its 64 pixels, N = the 64 co, K = NIN * 9 taps * 64 ci
+//     split in halves: with one input warpgroup 0 takes the first 18 of the
+//     36 k16 steps, with two it takes input a and warpgroup 1 input b.
+//     Each warp holds a 16-pixel x 64-co f32 tile, 32 accumulators a thread,
+//     in the layout of the m64n64 wgmma accumulator, and runs ldmatrix +
+//     mma.sync.m16n8k16 on the swizzled rows and taps;
+//   * epilogue, from the registers: the warpgroups swap halves through 8 KB
+//     of shared memory each way, so warpgroup wg ends with the summed co
+//     32 wg .. 32 wg + 31; bias, ReLU and the cast in registers, then the
+//     row goes through a 16 KB staging buffer (the same bytes, swizzled by
+//     pixel) and out in 16-byte coalesced stores: the strip's 64 pixels of
+//     an output row are contiguous in y;
+//   * statistics: every pixel a thread holds has the parity of its lane
+//     bit 2, so each thread sums its values and squares per channel in
+//     registers over the rows of its range; when the range moves to another
+//     sample, and at its end, lanes meet by shuffles, the 4 warps of each
+//     warpgroup in shared memory, and the CTA writes one [256] partial (s1
+//     lanes, then s2 lanes) for that sample. A partial never spans two
+//     samples. stats_reduce_ranges then sums each sample's partials in CTA
+//     order: the same inputs give the same bits, run to run (no atomics).
+//   * shared memory: 73,728 B of taps + 84,480 B of ring + 16,384 B of
+//     exchange = 174,592 B with one input; 147,456 + 67,584 + 16,384 =
+//     231,424 B of the 232,448 a block may have with two.
 //
 // f32 inputs take a CUDA-core path (one thread per output pixel, 64 f32
-// accumulators, weights read through the read-only cache): it exists for the
+// accumulators, weights read through the read-only cache, 8-row x 32-pixel
+// tiles staged by synchronous loads, per-tile partials): it exists for the
 // float32 policy's exactness, not for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int C = 64;             // channels per branch at the packed levels
-constexpr int TH = 8;             // output rows per tile, one warp each
-constexpr int TW = 32;            // output pixels per tile row
-constexpr int THREADS = 32 * TH;
-constexpr int SROWS = TH + 2;     // window rows incl. halo
-constexpr int SCOLS = TW + 2;     // window pixels per row incl. halo
-constexpr int XS_B = 80;          // bf16 window pixel stride (elements)
-constexpr int WS_B = 72;          // bf16 weight row stride (elements)
-constexpr int XS_F = 68;          // f32 window pixel stride (elements)
-constexpr int W_BYTES_B = 9 * C * WS_B * 2;            // one input's taps
-constexpr int X_BYTES_B = SROWS * SCOLS * XS_B * 2;    // bf16 window
-constexpr int X_BYTES_F = SROWS * SCOLS * XS_F * 4;    // f32 window
-constexpr int NSTAT = 4 * C;                           // s1 lanes, s2 lanes
-constexpr int RED_BYTES = TH * NSTAT * 4;              // per-warp partials
+constexpr int NSTAT = 4 * C;      // s1 lanes, s2 lanes
 
 struct Args {
   const void* x[2];     // inputs, NHWC [n, h, w, 64]
   const void* taps[2];  // [3][3][64][64] HWIO, inputs' dtype
-  const float* bias;    // [128] packed lanes (parity * 64 + c)
+  const float* bias;    // [128] packed lanes (parity * 64 + c); read if relu
   void* y;              // NHWC [n, h, w, 64]
-  float* part;          // [tiles][256] per-tile stats partials (stats only)
+  float* part;          // stats partials (stats only)
   int n, h, w;          // unpacked geometry: w = 2 * Wp
   int nin, relu, out_bf16, stats;
 };
+
+// ---------------------------------------------------------------------------
+// bf16: cp.async row ring, tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int SW = 64;                  // strip width, pixels
+constexpr int PIX = C * 2;              // bytes of one bf16 pixel, or tap row
+constexpr int XROW = (SW + 2) * PIX;    // bytes of one staged x row: 8,448
+constexpr int TAP = C * PIX;            // bytes of one tap [co][ci]: 8,192
+constexpr int B_THREADS = 256;          // two warpgroups
+constexpr int ACC = 32;                 // f32 accumulators a thread
+constexpr int HALF = ACC / 2;           // of them handed to the other group
+constexpr int XCH = 2 * HALF * 128 * 4;  // exchange and staging bytes
+
+template <int NIN>
+struct Ring {
+  static constexpr int XR = NIN == 1 ? 10 : 4;  // x rows of each input
+  static constexpr int DEPTH = XR - 3;          // commit groups in flight
+  static constexpr int STEPS = NIN * 18;        // k16 steps a warpgroup
+  static constexpr int SMEM = NIN * 9 * TAP + NIN * XR * XROW + XCH;
+};
+static_assert(Ring<1>::SMEM <= 232448 && Ring<2>::SMEM <= 232448,
+              "227 KB of shared memory a block");
+
+// Partials a CTA writes: one for each sample its range of strip rows meets.
+// A range of at most `len` rows meets at most ceil((len - 1) / per_b) + 1
+// samples of per_b rows each.
+__host__ __device__ __forceinline__ int range_slots(int total, int nblk,
+                                                    int per_b) {
+  const int len = total / nblk + (total % nblk > 0);
+  return (len - 1 + per_b - 1) / per_b + 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 writes 16 zero bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// Shared address of 16-byte chunk v of the 128-byte row at shared address
+// `row` (128-byte aligned): the chunk index XOR bits 7..9 of the address,
+// the 128-byte swizzle of the tensor cores' shared-memory operands.
+__device__ __forceinline__ uint32_t swz(uint32_t row, int v) {
+  return row + ((v ^ ((row >> 7) & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d[0..3] += A (16x16, row) B (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Issue the copies of image row r (zero outside 0..h-1) of the strip at
+// pixel c0, with the halo (pixels c0-1 .. c0+SW), into the ring row `dst`.
+__device__ __forceinline__ void load_row(uint32_t dst,
+                                         const __nv_bfloat16* __restrict__ src,
+                                         int b, int r, int c0, int h, int w) {
+  const bool row_ok = r >= 0 && r < h;
+  const __nv_bfloat16* row = src + ((size_t)b * h + (row_ok ? r : 0)) * w * C;
+  for (int i = threadIdx.x; i < (SW + 2) * 8; i += B_THREADS) {
+    const int q = i >> 3, v = i & 7;
+    const int c = c0 - 1 + q;
+    const bool ok = row_ok && c >= 0 && c < w;
+    cp_async16(swz(dst + q * PIX, v), ok ? row + (size_t)c * C + v * 8 : src,
+               ok);
+  }
+}
+
+// Every input's taps, HWIO [tap][ci][co] in global memory, into shared
+// memory at `dst` as [in][tap][co][ci] in the swizzle. A thread gathers 8
+// ci of one co (lanes on neighbouring co: coalesced) into one 16-byte store.
+template <int NIN>
+__device__ void load_taps(uint32_t dst, const Args& a) {
+  for (int i = threadIdx.x; i < NIN * 9 * C * 8; i += B_THREADS) {
+    const int co = i % C, v = (i / C) % 8, it = i / (C * 8);
+    const unsigned short* src =
+        static_cast<const unsigned short*>(a.taps[it / 9]) +
+        ((size_t)(it % 9) * C + v * 8) * C + co;
+    uint32_t k[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      k[e] = (uint32_t)__ldg(src + 2 * e * C) |
+             (uint32_t)__ldg(src + (2 * e + 1) * C) << 16;
+    st_shared16(swz(dst + it * TAP + co * PIX, v), k[0], k[1], k[2], k[3]);
+  }
+}
+
+// One output row's products of warp wi of warpgroup wg: its half of the
+// NIN * 36 k16 steps, for pixels 16 wi .. 16 wi + 15 of the strip and all
+// 64 co. acc[4 j + e] holds pixel 16 wi + lane / 4 + 8 (e >> 1), co 8 j +
+// 2 (lane % 4) + (e & 1): the layout of warp wi's rows of the m64n64
+// wgmma accumulator. Output row offset j reads ring offsets j .. j + 2.
+template <int NIN>
+__device__ __forceinline__ void products(float (&acc)[ACC], uint32_t xring,
+                                         uint32_t taps, int j, int wg, int wi,
+                                         int lane) {
+  constexpr int XR = Ring<NIN>::XR, STEPS = Ring<NIN>::STEPS;
+  const int s0 = wg * STEPS;
+  const int a_pix = 16 * wi + (lane & 15), a_chunk = lane >> 4;
+  const int b_co = ((lane >> 4) << 3) + (lane & 7), b_chunk = (lane >> 3) & 1;
+#pragma unroll 2
+  for (int s = s0; s < s0 + STEPS; ++s) {
+    const int in = s / 36, tap = (s % 36) >> 2, ks = s & 3;
+    const int dr = tap / 3, dc = tap - 3 * dr;
+    const uint32_t xr = xring + (in * XR + (j + dr) % XR) * XROW;
+    uint32_t fa[4];
+    ldsm4(fa, swz(xr + (a_pix + dc) * PIX, 2 * ks + a_chunk));
+    const uint32_t tb = taps + (in * 9 + tap) * TAP;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t fb[4];
+      ldsm4(fb, swz(tb + (16 * np + b_co) * PIX, 2 * ks + b_chunk));
+      mma16816(acc + 8 * np, fa, fb[0], fb[1]);
+      mma16816(acc + 8 * np + 4, fa, fb[2], fb[3]);
+    }
+  }
+}
+
+template <int NIN>
+__global__ void __launch_bounds__(B_THREADS, 1)
+conv_wp_bf16(const Args a) {
+  constexpr int XR = Ring<NIN>::XR, DEPTH = Ring<NIN>::DEPTH;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t taps = smem_addr(smem);
+  const uint32_t xring = taps + NIN * 9 * TAP;
+  float* xch = reinterpret_cast<float*>(smem + NIN * 9 * TAP +
+                                        NIN * XR * XROW);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(xch);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int wi = t >> 5, lane = tid & 31;
+  const __nv_bfloat16* xg[2] = {static_cast<const __nv_bfloat16*>(a.x[0]),
+                                static_cast<const __nv_bfloat16*>(a.x[1])};
+
+  load_taps<NIN>(taps, a);  // visible to all after the first row's barrier
+
+  // after the exchange a thread holds pixels p_lo and p_lo + 8 of the strip
+  // (both of parity par: the strip starts at an even pixel) and co
+  // co0 + 8 jj + e, jj < 4, e < 2
+  const int p_lo = 16 * wi + (lane >> 2), par = (lane >> 2) & 1;
+  const int co0 = 32 * wg + 2 * (lane & 3);
+  float bias[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    bias[k] = a.relu ? __ldg(a.bias + par * C + co0 + 8 * (k >> 1) + (k & 1))
+                     : 0.f;
+
+  // strip rows numbered in 32 bits (the host checks the count fits)
+  const int h = a.h, w = a.w;
+  const int strips = (w + SW - 1) / SW, per_b = strips * h;
+  const int total = a.n * per_b;
+  const int q = total / gridDim.x, rem = total % gridDim.x;
+  const int bid = blockIdx.x;
+  int g = bid * q + min(bid, rem);
+  const int g_end = g + q + (bid < rem);
+  const int nslot = range_slots(total, gridDim.x, per_b);
+  const int b_first = g / per_b;
+  int b_cur = b_first;
+  float s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+
+  const int osz = a.out_bf16 ? 2 : 4;
+  const int lg = a.out_bf16 ? 3 : 4, cpp = 1 << lg;  // 16-byte chunks a pixel
+  for (;;) {
+    const bool done = g >= g_end;
+    if (a.stats && (done || g / per_b != b_cur)) {
+      // this CTA's partial of sample b_cur: lanes of one parity and channel
+      // meet by shuffles (lane bits 3 and 4), the warps in shared memory
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], 8);
+        s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], 16);
+        s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], 8);
+        s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], 16);
+      }
+      if (lane < 8) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int lanev = par * C + co0 + 8 * (k >> 1) + (k & 1);
+          xch[wi * NSTAT + lanev] = s1[k];
+          xch[wi * NSTAT + 2 * C + lanev] = s2[k];
+        }
+      }
+      __syncthreads();
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v += xch[k * NSTAT + tid];
+      a.part[((size_t)bid * nslot + (b_cur - b_first)) * NSTAT + tid] = v;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+      b_cur = g / per_b;
+      __syncthreads();  // xch is the next row's exchange
+    }
+    if (done) break;
+    // one segment: rows ra .. rb-1 of strip s of image b
+    const int bs = g / h;
+    const int ra = g - bs * h;
+    const int rb = min(g_end - bs * h, h);
+    const int b = bs / strips, c0 = (bs - b * strips) * SW;
+    const int len = rb - ra;
+    // ring offset o holds image row ra - 1 + o of every input
+    auto load = [&](int o) {
+#pragma unroll
+      for (int in = 0; in < NIN; ++in)
+        load_row(xring + (in * XR + o % XR) * XROW, xg[in], b, ra - 1 + o, c0,
+                 h, w);
+    };
+    // prologue: group k holds offset k + 2, group 0 also offsets 0 and 1
+    load(0);
+    load(1);
+#pragma unroll
+    for (int k = 0; k < DEPTH; ++k) {
+      if (k < len) load(k + 2);
+      cp_commit();
+    }
+
+    const bool in_lo = c0 + p_lo < w, in_hi = c0 + p_lo + 8 < w;
+    for (int j = 0; j < len; ++j) {
+      cp_wait<DEPTH - 1>();  // group j has landed, for this thread ...
+      __syncthreads();       // ... for all; row j-1's products are done
+      if (j + DEPTH < len) load(j + DEPTH + 2);
+      cp_commit();
+
+      float acc[ACC];
+#pragma unroll
+      for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
+      products<NIN>(acc, xring, taps, j, wg, wi, lane);
+
+      // the warpgroups summed halves of K: group wg keeps co 32 wg ..
+      // 32 wg + 31, acc[16 wg ..], and hands the other 16 over
+      float v[HALF];
+#pragma unroll
+      for (int k = 0; k < HALF; ++k)
+        xch[(wg * HALF + k) * 128 + t] = wg ? acc[k] : acc[HALF + k];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < HALF; ++k)
+        v[k] = (wg ? acc[HALF + k] : acc[k]) +
+               xch[((1 - wg) * HALF + k) * 128 + t];
+      __syncthreads();  // xch is free: the staging buffer
+
+      // v[4 jj + e]: pixel p_lo + 8 (e >> 1), co co0 + 8 jj + (e & 1)
+#pragma unroll
+      for (int k = 0; k < HALF; ++k) {
+        const int sk = 2 * (k >> 2) + (k & 1);
+        if (a.relu) v[k] = fmaxf(v[k] + bias[sk], 0.f);
+        if (a.stats && ((k & 2) ? in_hi : in_lo)) {
+          s1[sk] += v[k];
+          s2[sk] += v[k] * v[k];
+        }
+      }
+      // stage the row [64 pixels][64 co], 16-byte chunks swizzled by pixel
+#pragma unroll
+      for (int k = 0; k < HALF; k += 2) {
+        const int m = p_lo + 4 * (k & 2), co = co0 + 2 * (k & ~3);
+        const int off = co * osz;
+        unsigned char* p = stage + m * cpp * 16 +
+                           (((off >> 4) ^ (m & 7)) << 4) + (off & 15);
+        if (a.out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(p) =
+              __floats2bfloat162_rn(v[k], v[k + 1]);
+        else
+          *reinterpret_cast<float2*>(p) = make_float2(v[k], v[k + 1]);
+      }
+      __syncthreads();
+      // the strip's pixels of output row ra + j are contiguous in y
+      unsigned char* yrow = static_cast<unsigned char*>(a.y) +
+                            (((size_t)b * h + ra + j) * w + c0) * C * osz;
+      for (int i = tid; i < SW * cpp; i += B_THREADS) {
+        const int m = i >> lg, c = i & (cpp - 1);
+        if (c0 + m < w)
+          *reinterpret_cast<uint4*>(yrow + (size_t)i * 16) =
+              *reinterpret_cast<const uint4*>(stage + m * cpp * 16 +
+                                              ((c ^ (m & 7)) << 4));
+      }
+    }
+    __syncthreads();  // the next segment's prologue refills the ring
+    g += len;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, exact float32 products
+// ---------------------------------------------------------------------------
+
+constexpr int TH = 8;             // output rows per tile
+constexpr int TW = 32;            // output pixels per tile row
+constexpr int THREADS = 32 * TH;
+constexpr int SROWS = TH + 2;     // window rows incl. halo
+constexpr int SCOLS = TW + 2;     // window pixels per row incl. halo
+constexpr int XS_F = 68;          // f32 window pixel stride (elements)
+constexpr int X_BYTES_F = SROWS * SCOLS * XS_F * 4;    // f32 window
+constexpr int RED_BYTES = TH * NSTAT * 4;              // per-row partials
 
 struct Tile {
   int b, r0, c0;
@@ -150,131 +481,6 @@ __device__ __forceinline__ void tile_stats(const float* red, float* part,
   for (int k = 0; k < TH; ++k) v += red[k * NSTAT + threadIdx.x];
   part[tile * NSTAT + threadIdx.x] = v;
 }
-
-// ---------------------------------------------------------------------------
-// bf16: WMMA on the tensor cores
-// ---------------------------------------------------------------------------
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__global__ void __launch_bounds__(THREADS)
-conv_wp_bf16(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xs =
-      reinterpret_cast<__nv_bfloat16*>(smem + a.nin * W_BYTES_B);
-  float* red = reinterpret_cast<float*>(smem + a.nin * W_BYTES_B + X_BYTES_B);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // taps of every input, once per CTA: [in][tap][ci][co], rows padded to WS_B
-  for (int in = 0; in < a.nin; ++in) {
-    const __nv_bfloat16* wg = static_cast<const __nv_bfloat16*>(a.taps[in]);
-    __nv_bfloat16* wd = ws + in * 9 * C * WS_B;
-    for (int i = threadIdx.x; i < 9 * C * (C / 8); i += THREADS) {
-      const int v = i % (C / 8), row = i / (C / 8);
-      *reinterpret_cast<uint4*>(wd + row * WS_B + v * 8) =
-          __ldg(reinterpret_cast<const uint4*>(wg + row * C + v * 8));
-    }
-  }
-
-  const long tiles = (long)a.n * ((a.h + TH - 1) / TH) * ((a.w + TW - 1) / TW);
-  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile t = tile_of(tile, a);
-    FragC acc[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) wmma::fill_fragment(acc[m][nn], 0.f);
-
-    for (int in = 0; in < a.nin; ++in) {
-      load_window<__nv_bfloat16, XS_B>(
-          xs, static_cast<const __nv_bfloat16*>(a.x[in]), t, a.h, a.w);
-      __syncthreads();
-      const __nv_bfloat16* wi = ws + in * 9 * C * WS_B;
-      for (int dr = 0; dr < 3; ++dr) {
-        for (int dc = 0; dc < 3; ++dc) {
-          // output (row warp, pixel p) reads window (warp + dr, p + dc)
-          const __nv_bfloat16* xr = xs + ((warp + dr) * SCOLS + dc) * XS_B;
-          const __nv_bfloat16* wt = wi + (dr * 3 + dc) * C * WS_B;
-#pragma unroll
-          for (int k = 0; k < C; k += 16) {
-            FragA fa[2];
-            FragB fb[4];
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              wmma::load_matrix_sync(fa[m], xr + m * 16 * XS_B + k, XS_B);
-#pragma unroll
-            for (int nn = 0; nn < 4; ++nn)
-              wmma::load_matrix_sync(fb[nn], wt + k * WS_B + nn * 16, WS_B);
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-              for (int nn = 0; nn < 4; ++nn)
-                wmma::mma_sync(acc[m][nn], fa[m], fb[nn], acc[m][nn]);
-          }
-        }
-      }
-      __syncthreads();   // window free: next input, or the epilogue scratch
-    }
-
-    float* scratch = reinterpret_cast<float*>(xs) + warp * 256;
-    const int r = t.r0 + warp;
-    const int i = lane >> 1, j0 = (lane & 1) * 8;
-    // stats: lane (sc, sp) sums column sc over the fragment rows (pixels)
-    // of parity sp; c0 and m*16 are even, so a row's parity is its own
-    const int sc = lane & 15, sp = lane >> 4;
-    float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        wmma::store_matrix_sync(scratch, acc[m][nn], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int col = t.c0 + m * 16 + i;
-        const int co = nn * 16 + j0;
-        if (r < a.h && col < a.w) {
-          const float* bp = a.bias + (col & 1) * C + co;
-          float v[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            v[j] = epilogue(scratch[i * 16 + j0 + j], bp[j], a.relu);
-          store8(a.y, (((size_t)t.b * a.h + r) * a.w + col) * C + co, v,
-                 a.out_bf16);
-        }
-        if (a.stats) {
-          const float bs = a.bias[sp * C + nn * 16 + sc];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int ii = 2 * q + sp;
-            if (r < a.h && t.c0 + m * 16 + ii < a.w) {
-              const float v = epilogue(scratch[ii * 16 + sc], bs, a.relu);
-              s1[nn] += v;
-              s2[nn] += v * v;
-            }
-          }
-        }
-        __syncwarp();
-      }
-    }
-    if (a.stats) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        red[warp * NSTAT + sp * C + nn * 16 + sc] = s1[nn];
-        red[warp * NSTAT + 2 * C + sp * C + nn * 16 + sc] = s2[nn];
-      }
-      tile_stats(red, a.part, tile);
-    }
-    __syncthreads();     // scratch (the window) is reloaded by the next tile
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores, exact float32 products
-// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
 conv_wp_f32(const Args a) {
@@ -376,18 +582,88 @@ stats_reduce(const float* __restrict__ part, float* s1, float* s2, int tps) {
   }
 }
 
+// Per-sample sums of conv_wp_bf16's partials: sample b's are those of the
+// CTAs whose row ranges meet it, summed in CTA order (deterministic).
+// grid n, NSTAT threads, one value each.
+__global__ void __launch_bounds__(NSTAT)
+stats_reduce_ranges(const float* __restrict__ part, float* s1, float* s2,
+                    int per_b, int total, int nblk) {
+  const int b = blockIdx.x, v = threadIdx.x;
+  const int q = total / nblk, rem = total % nblk;
+  const int nslot = range_slots(total, nblk, per_b);
+  auto cta_of = [&](int g) {
+    return g < rem * (q + 1) ? g / (q + 1) : rem + (g - rem * (q + 1)) / q;
+  };
+  float acc = 0.f;
+  const int last = cta_of(b * per_b + per_b - 1);
+  for (int c = cta_of(b * per_b); c <= last; ++c) {
+    const int start = c * q + min(c, rem);
+    acc += part[((size_t)c * nslot + b - start / per_b) * NSTAT + v];
+  }
+  (v < 2 * C ? s1 : s2)[(size_t)b * 2 * C + v % (2 * C)] = acc;
+}
+
 }  // namespace
 
-// Launch on `stream`; returns the CUDA error code (0 on success). Pointers
-// must be 16-byte aligned and the tensors contiguous; the wrapper checks.
-// With stats, `part` holds n * ceil(h/8) * ceil(w/32) * 256 floats of
-// scratch and s1, s2 receive [n][128] each.
+// Set up the kernel of (nin, dtype) on the current device: its shared-memory
+// attribute, and the launch geometry at this shape. Returns the grid (CTAs)
+// a launch uses and writes to *nparts the number of [256] f32 stats
+// partials it needs: the wrapper allocates them and calls this once per
+// (device, shape, nin, dtype). Negative: -(CUDA error).
+extern "C" int onet_conv3x3_wp_setup(int n, int h, int w, int nin,
+                                     int in_bf16, int* nparts) {
+  if (nin < 1 || nin > 2) return -(int)cudaErrorInvalidValue;
+  const void* kern;
+  int smem, threads;
+  if (in_bf16) {
+    kern = nin == 1 ? (const void*)conv_wp_bf16<1>
+                    : (const void*)conv_wp_bf16<2>;
+    smem = nin == 1 ? Ring<1>::SMEM : Ring<2>::SMEM;
+    threads = B_THREADS;
+  } else {
+    kern = (const void*)conv_wp_f32;
+    smem = X_BYTES_F + RED_BYTES;
+    threads = THREADS;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return -(int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, threads, smem)) != cudaSuccess)
+    return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  // bf16: CTAs over the strip rows, one partial per sample a range meets;
+  // f32: CTAs over the 8x32 tiles, one partial per tile
+  const long strips = (w + SW - 1) / SW;
+  const long work = in_bf16 ? n * strips * h
+                            : (long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  // the bf16 kernel numbers the strip rows with 32-bit ints
+  if (in_bf16 && work > INT32_MAX) return -(int)cudaErrorInvalidValue;
+  const long max_grid = (long)sms * per_sm;
+  const int grid = (int)(max_grid < work ? max_grid : work);
+  *nparts = grid == 0 ? 0
+          : in_bf16 ? grid * range_slots((int)work, grid, (int)(strips * h))
+                    : (int)work;
+  return grid;
+}
+
+// Launch on `stream` with the grid `nblk` from onet_conv3x3_wp_setup; returns
+// the CUDA error code (0 on success). Pointers must be 16-byte aligned and
+// the tensors contiguous; the wrapper checks. bias is read only with relu.
+// With stats, `part` holds that call's nparts * 256 floats of scratch and
+// s1, s2 receive [n][128] each. No host query: the set-up call made the
+// kernel launchable.
 extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
                                const void* wa, const void* wb,
                                const float* bias, void* y, float* part,
                                float* s1, float* s2, int n, int h, int w,
                                int nin, int in_bf16, int out_bf16, int relu,
-                               int stats, void* stream) {
+                               int stats, int nblk, void* stream) {
   if (nin < 1 || nin > 2) return (int)cudaErrorInvalidValue;
   Args a;
   a.x[0] = xa;
@@ -404,30 +680,29 @@ extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
   a.relu = relu;
   a.out_bf16 = out_bf16;
   a.stats = stats;
-
-  void (*kern)(const Args) = in_bf16 ? conv_wp_bf16 : conv_wp_f32;
-  const int smem =
-      (in_bf16 ? nin * W_BYTES_B + X_BYTES_B : X_BYTES_F) + RED_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, smem)) != cudaSuccess)
-    return (int)err;
-  const int tps = ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  const long tiles = (long)n * tps;
-  if (tiles == 0) return (int)cudaSuccess;
-  long grid = (long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > tiles) grid = tiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kern<<<(unsigned)grid, THREADS, smem, st>>>(a);
+  cudaError_t err;
+  if (nblk == 0) {  // no pixels: the sums are zero
+    if (stats && n > 0) {
+      if ((err = cudaMemsetAsync(s1, 0, n * 2 * C * 4, st)) != cudaSuccess)
+        return (int)err;
+      return (int)cudaMemsetAsync(s2, 0, n * 2 * C * 4, st);
+    }
+    return (int)cudaSuccess;
+  }
+  if (!in_bf16)
+    conv_wp_f32<<<nblk, THREADS, X_BYTES_F + RED_BYTES, st>>>(a);
+  else if (nin == 1)
+    conv_wp_bf16<1><<<nblk, B_THREADS, Ring<1>::SMEM, st>>>(a);
+  else
+    conv_wp_bf16<2><<<nblk, B_THREADS, Ring<2>::SMEM, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || !stats) return (int)err;
-  stats_reduce<<<dim3((unsigned)n, NSTAT / 32), THREADS, 0, st>>>(part, s1, s2,
-                                                                tps);
+  const int strips = (w + SW - 1) / SW;
+  if (in_bf16)
+    stats_reduce_ranges<<<n, NSTAT, 0, st>>>(part, s1, s2, strips * h,
+                                             n * strips * h, nblk);
+  else
+    stats_reduce<<<dim3((unsigned)n, NSTAT / 32), THREADS, 0, st>>>(
+        part, s1, s2, ((h + TH - 1) / TH) * ((w + TW - 1) / TW));
   return (int)cudaGetLastError();
 }

@@ -207,6 +207,41 @@ def _aligned(*ts):
             raise ValueError("conv_wp kernels need 16-byte aligned tensors")
 
 
+@functools.cache
+def _lib():
+    """csrc/conv_wp.cu's two C functions, their signatures set once."""
+    lib = _build.load("conv_wp")
+    setup = lib.onet_conv3x3_wp_setup
+    setup.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    setup.restype = ctypes.c_int
+    fn = lib.onet_conv3x3_wp
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return setup, fn
+
+
+@functools.cache
+def _setup(device_index: int, n: int, h: int, w: int, nin: int,
+           bf16: int) -> tuple:
+    """The kernel's set-up on one card, once per shape, input count and
+    dtype: its shared-memory attribute, and (grid, stats partials) of a
+    launch (raises on a CUDA error, which is then not cached)."""
+    nparts = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        grid = _lib()[0](n, h, w, nin, bf16, ctypes.byref(nparts))
+    if grid < 0:
+        raise RuntimeError(f"conv_wp kernel setup failed: CUDA error {-grid}")
+    return grid, nparts.value
+
+
+@functools.cache
+def _zero_bias(device_index: int) -> torch.Tensor:
+    """A [128] f32 zero bias on one card, for bias_relu without a bias."""
+    return torch.zeros(L, dtype=torch.float32,
+                       device=torch.device("cuda", device_index))
+
+
 def _launch(xs, taps, bias, bias_relu, stats, out_dtype):
     """Run csrc/conv_wp.cu on CUDA tensors with the per-input [3, 3, 64, 64]
     taps; returns y [N, H, Wp, 128], and with ``stats`` also (s1, s2)
@@ -224,33 +259,31 @@ def _launch(xs, taps, bias, bias_relu, stats, out_dtype):
                              f"got {tuple(t.shape)} {t.device} {t.dtype}")
     xs = [x.contiguous() for x in xs]
     taps = [t.contiguous() for t in taps]
-    b = _bias(bias, x0).to(dev).contiguous()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    # the f32 path reads the bias whether or not it adds it
+    b = (bias.reshape(L).float().to(dev).contiguous() if bias is not None
+         else _zero_bias(index))
     n, h, wp, _ = x0.shape
+    bf16 = int(x0.dtype == torch.bfloat16)
+    grid, nparts = _setup(index, n, h, 2 * wp, len(xs), bf16)
     y = torch.empty((n, h, wp, L), dtype=out_dtype, device=dev)
     _aligned(*xs, *taps, b, y)
     if stats:
-        # per-tile partials of the first pass: 8-row x 32-pixel tiles
-        tiles = n * -(-h // 8) * -(-(2 * wp) // 32)
-        part = torch.empty((tiles, 2 * L), dtype=torch.float32, device=dev)
-        s1 = torch.zeros((n, L), dtype=torch.float32, device=dev)
-        s2 = torch.zeros((n, L), dtype=torch.float32, device=dev)
+        part = torch.empty((nparts, 2 * L), dtype=torch.float32, device=dev)
+        s1 = torch.empty((n, L), dtype=torch.float32, device=dev)
+        s2 = torch.empty((n, L), dtype=torch.float32, device=dev)
         ptrs = (part.data_ptr(), s1.data_ptr(), s2.data_ptr())
     else:
         ptrs = (0, 0, 0)
-    lib = _build.load("conv_wp")
-    fn = lib.onet_conv3x3_wp
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x1 = xs[1] if len(xs) > 1 else xs[0]
     t1 = taps[1] if len(taps) > 1 else taps[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xs[0].data_ptr(), x1.data_ptr(), taps[0].data_ptr(),
-                 t1.data_ptr(), b.data_ptr(), y.data_ptr(), *ptrs, n, h,
-                 2 * wp, len(xs), int(x0.dtype == torch.bfloat16),
-                 int(out_dtype == torch.bfloat16), int(bool(bias_relu)),
-                 int(bool(stats)), stream)
+        err = _lib()[1](xs[0].data_ptr(), x1.data_ptr(), taps[0].data_ptr(),
+                        t1.data_ptr(), b.data_ptr(), y.data_ptr(), *ptrs, n,
+                        h, 2 * wp, len(xs), bf16,
+                        int(out_dtype == torch.bfloat16),
+                        int(bool(bias_relu)), int(bool(stats)), grid, stream)
     if err:
         raise RuntimeError(f"conv_wp kernel launch failed: CUDA error {err}")
     counted = conv3x3_wp_raw if len(xs) == 1 else conv3x3_wp2_raw

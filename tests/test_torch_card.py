@@ -117,6 +117,50 @@ def test_stats_epilogue_matches_plain(dev, shape, dtype, bias_relu):
         _assert_sums_close(s2, rs2)
 
 
+@pytest.mark.parametrize("shape", [(2, 13, 50), (7, 37, 66)])
+@pytest.mark.parametrize("nin", [1, 2])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias_relu", [False, True])
+@pytest.mark.parametrize("stats", [False, True])
+def test_bf16_conv_strips_and_ranges(dev, shape, nin, out_dtype, bias_relu,
+                                     stats):
+    """The bf16 kernel past one 64-pixel strip and into ragged tails:
+    widths of 100 and 132 pixels, heights not a multiple of anything, and
+    CTA row ranges that cross sample boundaries. bf16 out within one bf16
+    rounding of the plain f32 value, f32 out within 1e-3 (reassociation)."""
+    xs, ws, bias = _inputs(dev, torch.bfloat16, *shape, seed=8 + nin)
+    raw = TC.conv3x3_wp_raw if nin == 1 else TC.conv3x3_wp2_raw
+    plain = TC.conv3x3_wp_plain if nin == 1 else TC.conv3x3_wp2_plain
+    args = [*xs[:nin], *(m for wc in ws[:nin] for m in wc)]
+    kw = dict(bias=bias, bias_relu=bias_relu, stats=stats)
+    n = raw.launches
+    got = raw(*args, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert raw.launches == n + 1
+    ref = plain(*args, out_dtype=torch.float32, **kw)
+    if not stats:
+        got, ref = (got,), (ref,)
+    assert got[0].dtype == out_dtype and got[0].shape == ref[0].shape
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-3, atol=1e-3)
+    else:
+        _assert_close(got[0], ref[0], torch.bfloat16)
+    for s, r in zip(got[1:], ref[1:]):
+        _assert_sums_close(s, r)
+
+
+@pytest.mark.parametrize("nin", [1, 2])
+def test_bf16_conv_stats_are_deterministic(dev, nin):
+    """Two calls with stats give the same bits for y, s1 and s2: partials
+    per CTA and sample, summed in CTA order, no atomics."""
+    xs, ws, bias = _inputs(dev, torch.bfloat16, 7, 37, 66, seed=10)
+    raw = TC.conv3x3_wp_raw if nin == 1 else TC.conv3x3_wp2_raw
+    args = [*xs[:nin], *(m for wc in ws[:nin] for m in wc)]
+    first = raw(*args, stats=True)
+    second = raw(*args, stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 16), (3, 12, 20), (1, 8, 4),
                                    (5, 37, 72), (1, 8, 18), (3, 40, 100),
                                    (2, 520, 258)])
