@@ -94,11 +94,11 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: cp.async row ring, tensor cores
+// bf16: cp.async row ring, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int SW = 64;                  // strip width, pixels
-constexpr int PIX = C * 2;              // bytes of one bf16 pixel, or tap row
+constexpr int PIX = C * 2;              // bytes of one bf16 pixel, tap row
 constexpr int XROW = (SW + 2) * PIX;    // bytes of one staged x row: 8,448
 constexpr int TAP = C * PIX;            // bytes of one tap [co][ci]: 8,192
 constexpr int B_THREADS = 256;          // two warpgroups
@@ -106,12 +106,17 @@ constexpr int ACC = 32;                 // f32 accumulators a thread
 constexpr int HALF = ACC / 2;           // of them handed to the other group
 constexpr int XCH = 2 * HALF * 128 * 4;  // exchange and staging bytes
 
+// One input: the taps (A) live in registers, the ring takes 12 rows. Two
+// inputs: 144 registers of taps a thread would spill, so A is read from
+// shared memory (147,456 bytes) and the ring takes 4 rows of each input.
 template <int NIN>
 struct Ring {
-  static constexpr int XR = NIN == 1 ? 10 : 4;  // x rows of each input
+  static constexpr bool A_REG = NIN == 1;
+  static constexpr int XR = NIN == 1 ? 12 : 4;  // x rows of each input
   static constexpr int DEPTH = XR - 3;          // commit groups in flight
   static constexpr int STEPS = NIN * 18;        // k16 steps a warpgroup
-  static constexpr int SMEM = NIN * 9 * TAP + NIN * XR * XROW + XCH;
+  static constexpr int TAPS = A_REG ? 0 : NIN * 9 * TAP;
+  static constexpr int SMEM = TAPS + NIN * XR * XROW + XCH;
 };
 static_assert(Ring<1>::SMEM <= 232448 && Ring<2>::SMEM <= 232448,
               "227 KB of shared memory a block");
@@ -145,14 +150,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
-                                            uint32_t b, uint32_t c,
-                                            uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
 // Shared address of 16-byte chunk v of the 128-byte row at shared address
 // `row` (128-byte aligned): the chunk index XOR bits 7..9 of the address,
 // the 128-byte swizzle of the tensor cores' shared-memory operands.
@@ -160,21 +157,54 @@ __device__ __forceinline__ uint32_t swz(uint32_t row, int v) {
   return row + ((v ^ ((row >> 7) & 7)) << 4);
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// wgmma descriptor of a K-major operand in the 128-byte swizzle starting at
+// shared address `addr`: rows of 64 bf16 (one pixel) 128 bytes apart, 8 rows
+// a 1024-byte swizzle atom (stride 1024); the leading offset is unused.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
 }
 
-// d[0..3] += A (16x16, row) B (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+#define ACC8(i)                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[32] += A B, m64n64k16, bf16 in, f32 accumulate: A (64 co x 16 ci) from
+// registers, B (16 ci x 64 pixels) K-major in shared memory.
+__device__ __forceinline__ void wgmma_n64(float (&d)[ACC],
+                                          const uint32_t (&a)[4], uint64_t b) {
+  // scale-d is a predicate operand: set true, D += A B
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The same with A (64 co x 16 ci) K-major in shared memory.
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[ACC], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(a), "l"(b));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
 }
 
 // Issue the copies of image row r (zero outside 0..h-1) of the strip at
@@ -193,15 +223,32 @@ __device__ __forceinline__ void load_row(uint32_t dst,
   }
 }
 
+// k16 step s of the NIN * 36 of an output row: input s / 36, tap
+// (s % 36) / 4 = 3 dr + dc, ci 16 (s % 4) ..
+struct Step {
+  int in, dr, dc, ks;
+};
+
+__device__ __forceinline__ Step step_of(int s) {
+  Step t;
+  t.in = s / 36;
+  const int tap = (s % 36) >> 2;
+  t.dr = tap / 3;
+  t.dc = tap - 3 * t.dr;
+  t.ks = s & 3;
+  return t;
+}
+
 // Every input's taps, HWIO [tap][ci][co] in global memory, into shared
-// memory at `dst` as [in][tap][co][ci] in the swizzle. A thread gathers 8
-// ci of one co (lanes on neighbouring co: coalesced) into one 16-byte store.
+// memory at `dst` as [in][tap][co][ci] (K-major) in the swizzle. A thread
+// gathers 8 ci of one co (lanes on neighbouring co: coalesced) into one
+// 16-byte store.
 template <int NIN>
 __device__ void load_taps(uint32_t dst, const Args& a) {
   for (int i = threadIdx.x; i < NIN * 9 * C * 8; i += B_THREADS) {
     const int co = i % C, v = (i / C) % 8, it = i / (C * 8);
     const unsigned short* src =
-        static_cast<const unsigned short*>(a.taps[it / 9]) +
+        static_cast<const unsigned short*>(it < 9 ? a.taps[0] : a.taps[1]) +
         ((size_t)(it % 9) * C + v * 8) * C + co;
     uint32_t k[4];
 #pragma unroll
@@ -212,64 +259,88 @@ __device__ void load_taps(uint32_t dst, const Args& a) {
   }
 }
 
-// One output row's products of warp wi of warpgroup wg: its half of the
-// NIN * 36 k16 steps, for pixels 16 wi .. 16 wi + 15 of the strip and all
-// 64 co. acc[4 j + e] holds pixel 16 wi + lane / 4 + 8 (e >> 1), co 8 j +
-// 2 (lane % 4) + (e & 1): the layout of warp wi's rows of the m64n64
-// wgmma accumulator. Output row offset j reads ring offsets j .. j + 2.
-template <int NIN>
-__device__ __forceinline__ void products(float (&acc)[ACC], uint32_t xring,
-                                         uint32_t taps, int j, int wg, int wi,
-                                         int lane) {
+// Issue warpgroup WG's wgmma of output row offset j (ring offsets j .. j+2)
+// into acc and commit them: D[co][pixel] += taps x shifted x rows over its
+// STEPS k16 steps, all of whose taps, shifts and k offsets are constants.
+// The descriptors are linear in the address, so each is a ring row's plus
+// a constant.
+template <int NIN, int WG>
+__device__ __forceinline__ void issue_row(
+    float (&acc)[ACC], const uint32_t (&wa)[Ring<NIN>::A_REG ? Ring<NIN>::STEPS : 1][4],
+    uint32_t xring, uint32_t taps, int j) {
   constexpr int XR = Ring<NIN>::XR, STEPS = Ring<NIN>::STEPS;
-  const int s0 = wg * STEPS;
-  const int a_pix = 16 * wi + (lane & 15), a_chunk = lane >> 4;
-  const int b_co = ((lane >> 4) << 3) + (lane & 7), b_chunk = (lane >> 3) & 1;
-#pragma unroll 2
-  for (int s = s0; s < s0 + STEPS; ++s) {
-    const int in = s / 36, tap = (s % 36) >> 2, ks = s & 3;
-    const int dr = tap / 3, dc = tap - 3 * dr;
-    const uint32_t xr = xring + (in * XR + (j + dr) % XR) * XROW;
-    uint32_t fa[4];
-    ldsm4(fa, swz(xr + (a_pix + dc) * PIX, 2 * ks + a_chunk));
-    const uint32_t tb = taps + (in * 9 + tap) * TAP;
+  uint64_t rows[NIN][3];
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t fb[4];
-      ldsm4(fb, swz(tb + (16 * np + b_co) * PIX, 2 * ks + b_chunk));
-      mma16816(acc + 8 * np, fa, fb[0], fb[1]);
-      mma16816(acc + 8 * np + 4, fa, fb[2], fb[3]);
+  for (int in = 0; in < NIN; ++in)
+#pragma unroll
+    for (int dr = 0; dr < 3; ++dr)
+      rows[in][dr] = desc(xring + (in * XR + (j + dr) % XR) * XROW);
+  const uint64_t dtaps = desc(taps);
+#pragma unroll
+  for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const Step st = step_of(WG * STEPS + i);
+    const uint64_t b = rows[st.in][st.dr] + ((st.dc * PIX + st.ks * 32) >> 4);
+    if constexpr (Ring<NIN>::A_REG) {
+      wgmma_n64(acc, wa[i], b);
+    } else {
+      const int tap = (st.in * 3 + st.dr) * 3 + st.dc;
+      wgmma_n64_ss(acc, dtaps + ((tap * TAP + st.ks * 32) >> 4), b);
     }
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int NIN>
 __global__ void __launch_bounds__(B_THREADS, 1)
 conv_wp_bf16(const Args a) {
-  constexpr int XR = Ring<NIN>::XR, DEPTH = Ring<NIN>::DEPTH;
-  extern __shared__ __align__(1024) unsigned char smem[];
+  using R = Ring<NIN>;
+  constexpr int XR = R::XR, DEPTH = R::DEPTH, STEPS = R::STEPS;
+  extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t taps = smem_addr(smem);
-  const uint32_t xring = taps + NIN * 9 * TAP;
-  float* xch = reinterpret_cast<float*>(smem + NIN * 9 * TAP +
-                                        NIN * XR * XROW);
+  const uint32_t xring = taps + R::TAPS;
+  float* xch = reinterpret_cast<float*>(smem + R::TAPS + NIN * XR * XROW);
   unsigned char* stage = reinterpret_cast<unsigned char*>(xch);
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int wi = t >> 5, lane = tid & 31;
   const __nv_bfloat16* xg[2] = {static_cast<const __nv_bfloat16*>(a.x[0]),
                                 static_cast<const __nv_bfloat16*>(a.x[1])};
 
-  load_taps<NIN>(taps, a);  // visible to all after the first row's barrier
-
-  // after the exchange a thread holds pixels p_lo and p_lo + 8 of the strip
-  // (both of parity par: the strip starts at an even pixel) and co
-  // co0 + 8 jj + e, jj < 4, e < 2
-  const int p_lo = 16 * wi + (lane >> 2), par = (lane >> 2) & 1;
-  const int co0 = 32 * wg + 2 * (lane & 3);
-  float bias[8];
+  // A, the taps: with one input in registers for the kernel's life (step
+  // i's fragment holds co 16 wi + lane / 4 (+ 8) and ci 16 ks + 2 (lane % 4)
+  // (+ 1, + 8), two bf16 a register, lower ci in the low half); with two in
+  // shared memory, visible to the tensor cores after the first row's fence
+  // and barrier
+  const int cr = 16 * wi + (lane >> 2);
+  uint32_t wa[R::A_REG ? STEPS : 1][4];
+  if constexpr (R::A_REG) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    bias[k] = a.relu ? __ldg(a.bias + par * C + co0 + 8 * (k >> 1) + (k & 1))
-                     : 0.f;
+    for (int i = 0; i < STEPS; ++i) {
+      const Step st = step_of(wg * STEPS + i);
+      const unsigned short* p =
+          static_cast<const unsigned short*>(a.taps[0]) +
+          ((size_t)(3 * st.dr + st.dc) * C + 16 * st.ks + 2 * (lane & 3)) *
+              C + cr;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const unsigned short* q = p + (r >> 1) * 8 * C + (r & 1) * 8;
+        wa[i][r] = (uint32_t)__ldg(q) | (uint32_t)__ldg(q + C) << 16;
+      }
+    }
+  } else {
+    load_taps<NIN>(taps, a);
+  }
+
+  // after the exchange a thread holds pixels px0 + 8 jj + (e & 1) of the
+  // strip, jj < 4, and co cr + 8 (e >> 1); the parity of a pixel is e & 1
+  // (the strip starts at an even pixel)
+  const int px0 = 32 * wg + 2 * (lane & 3);
+  float bias[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    bias[e] = a.relu ? __ldg(a.bias + (e & 1) * C + cr + 8 * (e >> 1)) : 0.f;
 
   // strip rows numbered in 32 bits (the host checks the count fits)
   const int h = a.h, w = a.w;
@@ -282,39 +353,86 @@ conv_wp_bf16(const Args a) {
   const int nslot = range_slots(total, gridDim.x, per_b);
   const int b_first = g / per_b;
   int b_cur = b_first;
-  float s1[8], s2[8];
+  float s1[4], s2[4];  // by e: co cr + 8 (e >> 1), parity e & 1
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+  for (int e = 0; e < 4; ++e) s1[e] = s2[e] = 0.f;
 
   const int osz = a.out_bf16 ? 2 : 4;
   const int lg = a.out_bf16 ? 3 : 4, cpp = 1 << lg;  // 16-byte chunks a pixel
+
+  // Output row r of image b, strip c0, from acc (its wgmma waited for):
+  // acc[4 jb + e] holds co cr + 8 (e >> 1), pixel 8 jb + 2 (lane % 4) +
+  // (e & 1). Group wg keeps pixels 32 wg .. 32 wg + 31, acc[16 wg ..], and
+  // hands the other 16 over; then bias, ReLU, stats, the cast, and the row
+  // through the staging buffer to y.
+  auto finish = [&](const float (&acc)[ACC], int b, int r, int c0) {
+    float v[HALF];
+#pragma unroll
+    for (int k = 0; k < HALF; ++k)
+      xch[(wg * HALF + k) * 128 + t] = wg ? acc[k] : acc[HALF + k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < HALF; ++k)
+      v[k] = (wg ? acc[HALF + k] : acc[k]) +
+             xch[((1 - wg) * HALF + k) * 128 + t];
+    __syncthreads();  // xch is free: the staging buffer
+    // v[4 jj + e]: pixel px0 + 8 jj + (e & 1), co cr + 8 (e >> 1); stage
+    // the row [64 pixels][64 co], 16-byte chunks swizzled by pixel
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) {
+      const int e = k & 3, m = px0 + 8 * (k >> 2) + (e & 1);
+      if (a.relu) v[k] = fmaxf(v[k] + bias[e], 0.f);
+      if (a.stats && c0 + m < w) {
+        s1[e] += v[k];
+        s2[e] += v[k] * v[k];
+      }
+      const int off = (cr + 8 * (e >> 1)) * osz;
+      unsigned char* p =
+          stage + m * cpp * 16 + (((off >> 4) ^ (m & 7)) << 4) + (off & 15);
+      if (a.out_bf16)
+        *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16(v[k]);
+      else
+        *reinterpret_cast<float*>(p) = v[k];
+    }
+    __syncthreads();
+    // the strip's pixels of an output row are contiguous in y
+    unsigned char* yrow = static_cast<unsigned char*>(a.y) +
+                          (((size_t)b * h + r) * w + c0) * C * osz;
+    for (int i = tid; i < SW * cpp; i += B_THREADS) {
+      const int m = i >> lg, c = i & (cpp - 1);
+      if (c0 + m < w)
+        *reinterpret_cast<uint4*>(yrow + (size_t)i * 16) =
+            *reinterpret_cast<const uint4*>(stage + m * cpp * 16 +
+                                            ((c ^ (m & 7)) << 4));
+    }
+  };
+
+  float acc0[ACC], acc1[ACC];
   for (;;) {
     const bool done = g >= g_end;
     if (a.stats && (done || g / per_b != b_cur)) {
-      // this CTA's partial of sample b_cur: lanes of one parity and channel
-      // meet by shuffles (lane bits 3 and 4), the warps in shared memory
+      // this CTA's partial of sample b_cur: the 4 lanes of a channel row
+      // meet by shuffles, the warpgroups in shared memory
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], 8);
-        s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], 16);
-        s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], 8);
-        s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], 16);
+      for (int e = 0; e < 4; ++e) {
+        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], 1);
+        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], 2);
+        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], 1);
+        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], 2);
       }
-      if (lane < 8) {
+      if ((lane & 3) == 0) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int lanev = par * C + co0 + 8 * (k >> 1) + (k & 1);
-          xch[wi * NSTAT + lanev] = s1[k];
-          xch[wi * NSTAT + 2 * C + lanev] = s2[k];
+        for (int e = 0; e < 4; ++e) {
+          const int lanev = (e & 1) * C + cr + 8 * (e >> 1);
+          xch[wg * NSTAT + lanev] = s1[e];
+          xch[wg * NSTAT + 2 * C + lanev] = s2[e];
         }
       }
       __syncthreads();
-      float v = 0.f;
+      a.part[((size_t)bid * nslot + (b_cur - b_first)) * NSTAT + tid] =
+          xch[tid] + xch[NSTAT + tid];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v += xch[k * NSTAT + tid];
-      a.part[((size_t)bid * nslot + (b_cur - b_first)) * NSTAT + tid] = v;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+      for (int e = 0; e < 4; ++e) s1[e] = s2[e] = 0.f;
       b_cur = g / per_b;
       __syncthreads();  // xch is the next row's exchange
     }
@@ -341,65 +459,36 @@ conv_wp_bf16(const Args a) {
       cp_commit();
     }
 
-    const bool in_lo = c0 + p_lo < w, in_hi = c0 + p_lo + 8 < w;
-    for (int j = 0; j < len; ++j) {
-      cp_wait<DEPTH - 1>();  // group j has landed, for this thread ...
-      __syncthreads();       // ... for all; row j-1's products are done
-      if (j + DEPTH < len) load(j + DEPTH + 2);
-      cp_commit();
-
-      float acc[ACC];
-#pragma unroll
-      for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
-      products<NIN>(acc, xring, taps, j, wg, wi, lane);
-
-      // the warpgroups summed halves of K: group wg keeps co 32 wg ..
-      // 32 wg + 31, acc[16 wg ..], and hands the other 16 over
-      float v[HALF];
-#pragma unroll
-      for (int k = 0; k < HALF; ++k)
-        xch[(wg * HALF + k) * 128 + t] = wg ? acc[k] : acc[HALF + k];
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < HALF; ++k)
-        v[k] = (wg ? acc[HALF + k] : acc[k]) +
-               xch[((1 - wg) * HALF + k) * 128 + t];
-      __syncthreads();  // xch is free: the staging buffer
-
-      // v[4 jj + e]: pixel p_lo + 8 (e >> 1), co co0 + 8 jj + (e & 1)
-#pragma unroll
-      for (int k = 0; k < HALF; ++k) {
-        const int sk = 2 * (k >> 2) + (k & 1);
-        if (a.relu) v[k] = fmaxf(v[k] + bias[sk], 0.f);
-        if (a.stats && ((k & 2) ? in_hi : in_lo)) {
-          s1[sk] += v[k];
-          s2[sk] += v[k] * v[k];
-        }
-      }
-      // stage the row [64 pixels][64 co], 16-byte chunks swizzled by pixel
-#pragma unroll
-      for (int k = 0; k < HALF; k += 2) {
-        const int m = p_lo + 4 * (k & 2), co = co0 + 2 * (k & ~3);
-        const int off = co * osz;
-        unsigned char* p = stage + m * cpp * 16 +
-                           (((off >> 4) ^ (m & 7)) << 4) + (off & 15);
-        if (a.out_bf16)
-          *reinterpret_cast<__nv_bfloat162*>(p) =
-              __floats2bfloat162_rn(v[k], v[k + 1]);
+    // Step j issues row j's wgmma into cur, finishes row j-1 from prev
+    // while they run, then waits for them: the tensor cores multiply during
+    // the epilogue. Row j-1's wgmma were waited for before row j's barrier,
+    // after which the ring slot of offset j-1 is refilled.
+    auto step = [&](int j, float (&cur)[ACC], const float (&prev)[ACC]) {
+      if (j < len) {
+        cp_wait<DEPTH - 1>();  // group j has landed, for this thread;
+        // make it visible to the tensor cores (the async proxy) ...
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();  // ... for all threads
+        if (j + DEPTH < len) load(j + DEPTH + 2);
+        cp_commit();
+        if (wg)
+          issue_row<NIN, 1>(cur, wa, xring, taps, j);
         else
-          *reinterpret_cast<float2*>(p) = make_float2(v[k], v[k + 1]);
+          issue_row<NIN, 0>(cur, wa, xring, taps, j);
+      } else {
+        __syncthreads();  // the staging buffer's last reads are done
       }
-      __syncthreads();
-      // the strip's pixels of output row ra + j are contiguous in y
-      unsigned char* yrow = static_cast<unsigned char*>(a.y) +
-                            (((size_t)b * h + ra + j) * w + c0) * C * osz;
-      for (int i = tid; i < SW * cpp; i += B_THREADS) {
-        const int m = i >> lg, c = i & (cpp - 1);
-        if (c0 + m < w)
-          *reinterpret_cast<uint4*>(yrow + (size_t)i * 16) =
-              *reinterpret_cast<const uint4*>(stage + m * cpp * 16 +
-                                              ((c ^ (m & 7)) << 4));
+      if (j > 0) finish(prev, b, ra + j - 1, c0);
+      if (j < len) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < ACC; ++k)
+          asm volatile("" : "+f"(cur[k])::"memory");
       }
+    };
+    for (int j = 0; j <= len; j += 2) {
+      step(j, acc0, acc1);
+      if (j + 1 <= len) step(j + 1, acc1, acc0);
     }
     __syncthreads();  // the next segment's prologue refills the ring
     g += len;
