@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. card: name and power limit; build the CUDA kernels from csrc/.
+  1. card: name and power limit; build the CUDA kernels from csrc/, print
+     ptxas's registers and spills of the conv kernels (fatal if the bf16
+     ones spill).
   2. kernels: each hand-written kernel against its plain PyTorch version at
      N=4, 512x512 (bf16 and f32): the conv with bias+ReLU on and off, the
      conv with the BatchNorm-stats epilogue (one and two inputs), the weight
-     gradient (also bf16 at a ragged 520x516, twice, bit-identical); and at
+     gradient; bf16 at a ragged 520x516 (the width not a multiple of the
+     kernels' 64-pixel strip): the stats and serving epilogues (one and two
+     inputs) and the weight gradient, each twice, bit-identical; and at
      the shapes the main paths give them, bf16: the
      serving epilogue at the HTTP batch (8 frames -> N=16 packed samples),
-     the stats epilogue and the weight gradient at the training batch
-     (8 -> N=16). Then timed beside its plain version, a one-call library
-     yardstick and its bound, each compared again on the inputs it is
-     timed on: the serving epilogue at the serving shape of bench.py
-     (batch 32 -> N=64), the stats epilogue and the weight gradient at the
-     training shape (the weight gradient and its cuDNN yardstick with the
-     L2 cache flushed before each call, beside the profiler's device
-     time).
+     the stats epilogue, the input-gradient conv and the weight gradient at
+     the training batch (8 -> N=16). Then timed beside its plain version, a
+     one-call library yardstick and its bound, each compared again on the
+     inputs it is timed on: the serving epilogue at the serving shape of
+     bench.py (batch 32 -> N=64), the stats epilogue, the input-gradient
+     conv and the weight gradient at the training shape; the kernels and
+     their cuDNN yardsticks with the L2 cache flushed before each call,
+     beside the profiler's device time (the conv rows also keep their
+     earlier warm timing).
   3. serving: the weight-shared Onet at full width (base 64, seeded random
      weights and BN statistics), BN-folded, behind the HTTP daemon on
      localhost, bf16, pair-packed path; 3 POST /segment requests of
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -136,6 +142,37 @@ def breakdown(fn, label: str, top: int = 10):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<3d} {e.key[:100]}")
+
+
+def timed(fn, prefix: str = "") -> dict:
+    """{ms, device_ms, warm_ms} of one call: CUDA events with the L2 cache
+    flushed before each call (as a train step or a served batch finds it),
+    the profiler's device time (no host work counts), and CUDA events on a
+    warm cache (the timing of earlier runs, kept for history)."""
+    return {prefix + "ms": cold_ms(fn), prefix + "device_ms": device_ms(fn),
+            prefix + "warm_ms": cuda_ms(fn)}
+
+
+KERNEL_NAMES = ("conv_wp_bf16_1in", "conv_wp_bf16_2in", "conv_wp_f32",
+                "stats_reduce_ranges", "stats_reduce", "dw_bf16", "dw_f32",
+                "dw_reduce")
+
+
+def ptxas_report(_build, source: str, no_spill: str = "") -> None:
+    """Log ptxas's registers and spills of each kernel of csrc/<source>.cu
+    (from nvcc -Xptxas -v); raise if a kernel whose name holds
+    ``no_spill`` spills."""
+    entry = "?"
+    for line in _build.LOGS.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = next((k for k in KERNEL_NAMES if k in m.group(1)),
+                         m.group(1))
+        elif "registers" in line or "spill" in line or "C75" in line:
+            log(f"[build] {source} ptxas {entry}: {line.strip()}")
+            if no_spill and no_spill in entry and re.search(
+                    r"[1-9]\d* bytes spill", line):
+                raise AssertionError(f"{entry} spills registers: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -246,20 +283,38 @@ def check_train_kernels(TC, dev):
     if not torch.equal(TC.conv3x3_wp_dw(x, dy), TC.conv3x3_wp_dw(x, dy)):
         raise AssertionError("conv3x3_wp_dw differs between two calls")
     log("[check] conv3x3_wp_dw (3, 520, 516) bf16: two calls bit-identical")
+    ws = [tuple(t.to(dev) for t in TC.make_wc_we(
+        0.06 * torch.randn((3, 3, 64, 64), generator=g), dtype=torch.bfloat16))
+        for _ in range(2)]
+    bias = (0.1 * torch.randn(64, generator=g)).repeat(2).to(dev)
+    for name in KERNELS:
+        for tag, b, kw in (("+stats", None, dict(stats=True)),
+                           (" bias_relu", bias, dict(bias_relu=True))):
+            conv_err(TC, name, [x, dy], ws, b,
+                     f"{name}{tag} (3, 520, 516) bf16", **kw)
+            first, second = (call(TC, name, [x, dy], ws, b, **kw)
+                             for _ in range(2))
+            if not kw.get("stats"):
+                first, second = (first,), (second,)
+            if not all(torch.equal(u, v) for u, v in zip(first, second)):
+                raise AssertionError(f"{name}{tag} differs between two calls")
+            log(f"[check] {name}{tag} (3, 520, 516) bf16: two calls "
+                f"bit-identical")
 
 
 def time_train_kernels(TC, dev) -> tuple:
     """Training shape: N=16 packed samples (bench.py's batch 8), bf16. Each
     kernel is first compared with its plain version on the inputs it is
     timed on; those errors go into the kernels line.
-    Library yardsticks, never called by the port: for conv+stats cuDNN's
-    conv alone (no call computes the conv with its statistics); for dw
-    cuDNN's weight gradient (aten.convolution_backward, output mask
-    [False, True, False]) on the unpacked channels-last tensors. dw and
-    its yardstick are timed with the L2 cache flushed before each call
-    (cold, as a train step finds them) and also by the profiler's device
-    time (no host work inside); the other rows keep warm CUDA-event
-    timing, comparable with their history."""
+    Library yardsticks, never called by the port: for conv+stats and the
+    input-gradient conv (dx: dy through the forward kernel with
+    flip-transposed taps, no epilogue) cuDNN's conv alone (no call
+    computes the conv with its statistics); for dw cuDNN's weight gradient
+    (aten.convolution_backward, output mask [False, True, False]) on the
+    unpacked channels-last tensors. Kernels and yardsticks are timed with
+    the L2 cache flushed before each call (cold, as a train step finds
+    them) and by the profiler's device time (no host work inside), the
+    convs also warm (``timed``)."""
     n, dtype = N_TRAIN, torch.bfloat16
     xs, ws, w64, _ = kernel_inputs(TC, n, dtype, dev, seed=SEED + 3)
     out, errs = {}, {}
@@ -270,24 +325,47 @@ def time_train_kernels(TC, dev) -> tuple:
                                          f"{name}+stats N={n} bf16",
                                          stats=True)
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: call(TC, name, xs, ws, None, stats=True))
-        plain_ms = cuda_ms(lambda: call(TC, name, xs, ws, None, plain=True,
-                                        stats=True), reps=3, warmup=1)
+        t = timed(lambda: call(TC, name, xs, ws, None, stats=True))
+        t["plain_ms"] = cuda_ms(lambda: call(TC, name, xs, ws, None,
+                                             plain=True, stats=True),
+                                reps=3, warmup=1)
         torch.cuda.empty_cache()
         x_lib = torch.cat(unpacked[:nin], dim=1) if nin > 1 else unpacked[0]
         w_lib = torch.cat([w.to(dev, dtype) for w in w64[:nin]], dim=2)
         w_lib = w_lib.permute(3, 2, 0, 1).contiguous()
-        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
-            x_lib, w_lib, padding=1))
+        t.update(timed(lambda: torch.nn.functional.conv2d(
+            x_lib, w_lib, padding=1), "library_"))
         del x_lib
         torch.cuda.empty_cache()
         b_ms, b_by = bound(nin, n, dtype, stats=True)
         out[name + "+stats"] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by, library_call="F.conv2d alone (cuDNN), no stats")
-        log(f"[time] {name}+stats N={n} {H}x{W} bf16: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, cuDNN conv alone {lib_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            **t, bound_ms=b_ms, bound_by=b_by, l2="cold",
+            library_call="F.conv2d alone (cuDNN), no stats")
+        log_conv_time(f"{name}+stats N={n}", out[name + "+stats"])
+    # the input-gradient conv of the train step (_ConvWp.backward)
+    w_dx = TC.flip_transpose(w64[0].to(dev, dtype))
+    got = TC._conv_w([xs[1]], [w_dx])
+    ref = TC.conv3x3_wp_plain(xs[1], *TC.make_wc_we(w_dx, dtype=dtype),
+                              out_dtype=torch.float32)
+    dx_err, top = (got.float() - ref).abs().max().item(), ref.abs().max().item()
+    ok = dx_err <= 2e-2 * top
+    log(f"[check] conv3x3_wp dx (flip-transposed taps) N={n} bf16: y "
+        f"{dx_err:.3e} (max {top:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dx conv disagrees with its plain version")
+    errs["conv3x3_wp+dx"] = dx_err
+    del got, ref
+    t = timed(lambda: TC._conv_w([xs[1]], [w_dx]))
+    t["plain_ms"] = cuda_ms(lambda: TC.conv3x3_wp_plain(
+        xs[1], *TC.make_wc_we(w_dx, dtype=dtype)), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    w_lib = w_dx.permute(3, 2, 0, 1).contiguous()
+    t.update(timed(lambda: torch.nn.functional.conv2d(
+        unpacked[1], w_lib, padding=1), "library_"))
+    b_ms, b_by = bound(1, n, dtype)
+    out["conv3x3_wp+dx"] = dict(**t, bound_ms=b_ms, bound_by=b_by, l2="cold",
+                                library_call="F.conv2d alone (cuDNN)")
+    log_conv_time(f"conv3x3_wp dx N={n}", out["conv3x3_wp+dx"])
     x, dy = xs
     errs["conv3x3_wp_dw"] = dw_err(TC, x, dy, f"conv3x3_wp_dw N={n} bf16")
     kernel = lambda: TC.conv3x3_wp_dw(x, dy)
@@ -337,9 +415,10 @@ def time_kernels(TC, dev) -> dict:
         conv_err(TC, name, xs, ws, bias, f"{name} N={n} bf16 bias_relu=True",
                  bias_relu=True)
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: call(TC, name, xs, ws, bias, bias_relu=True))
-        plain_ms = cuda_ms(lambda: call(TC, name, xs, ws, bias, plain=True,
-                                        bias_relu=True), reps=3, warmup=1)
+        t = timed(lambda: call(TC, name, xs, ws, bias, bias_relu=True))
+        t["plain_ms"] = cuda_ms(lambda: call(TC, name, xs, ws, bias,
+                                             plain=True, bias_relu=True),
+                                reps=3, warmup=1)
         torch.cuda.empty_cache()
         # library yardstick: cuDNN conv + bias on the unpacked channels-last
         # tensor (the two-input form on a concat built outside the timing)
@@ -348,17 +427,25 @@ def time_kernels(TC, dev) -> dict:
         w_lib = torch.cat([w.to(dev, dtype) for w in w64[:nin]], dim=2)
         w_lib = w_lib.permute(3, 2, 0, 1).contiguous()
         b_lib = bias[:64].to(dtype)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
-            x_lib, w_lib, b_lib, padding=1))
+        t.update(timed(lambda: torch.nn.functional.conv2d(
+            x_lib, w_lib, b_lib, padding=1), "library_"))
         del x_lib
         torch.cuda.empty_cache()
         b_ms, b_by = bound(nin, n, dtype)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
-        log(f"[time] {name} N={n} {H}x{W} bf16: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
-            f"ms ({b_by})")
+        out[name] = dict(**t, bound_ms=b_ms, bound_by=b_by, l2="cold",
+                         library_call="F.conv2d with bias (cuDNN), no ReLU")
+        log_conv_time(f"{name} bias_relu N={n}", out[name])
     return out
+
+
+def log_conv_time(tag: str, t: dict) -> None:
+    log(f"[time] {tag} {H}x{W} bf16, cold L2: kernel {t['ms']:.3f} ms "
+        f"(profiler device {t['device_ms']:.3f}, warm {t['warm_ms']:.3f}), "
+        f"plain {t['plain_ms']:.3f} ms, {t['library_call']} "
+        f"{t['library_ms']:.3f} ms (device {t['library_device_ms']:.3f}, "
+        f"warm {t['library_warm_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}); kernel at {t['bound_ms'] / t['ms']:.1%} of its "
+        f"bound")
 
 
 # ---------------------------------------------------------------------------
@@ -960,9 +1047,8 @@ def main() -> int:
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in _build.LOGS.get("conv_wp_dw", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] conv_wp_dw ptxas: {line.strip()}")
+    ptxas_report(_build, "conv_wp", no_spill="conv_wp_bf16")
+    ptxas_report(_build, "conv_wp_dw", no_spill="dw_bf16")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1003,6 +1089,13 @@ def main() -> int:
             name=key, route="cuda", source="onet_tpu_torch/csrc/conv_wp.cu",
             replaces=meta["replaces"], launches=trained["launches"][key],
             max_abs_err=errs[key], **times[key]))
+    stats_launches = trained["launches"]["conv3x3_wp+stats"]
+    rows.append(dict(
+        name="conv3x3_wp+dx", route="cuda",
+        source="onet_tpu_torch/csrc/conv_wp.cu",
+        replaces=KERNELS["conv3x3_wp"]["replaces"],
+        launches=trained["launches"]["conv3x3_wp"] - stats_launches,
+        max_abs_err=errs["conv3x3_wp+dx"], **times["conv3x3_wp+dx"]))
     rows.append(dict(
         name="conv3x3_wp_dw", route="cuda",
         source="onet_tpu_torch/csrc/conv_wp_dw.cu",

@@ -93,6 +93,25 @@ struct Args {
   int nin, relu, out_bf16, stats;
 };
 
+__device__ __forceinline__ float epilogue(float v, float b, int relu) {
+  return relu ? fmaxf(v + b, 0.f) : v;
+}
+
+__device__ __forceinline__ void store8(void* y, size_t off, const float* v,
+                                       int out_bf16) {
+  if (out_bf16) {
+    __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j]);
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(y) + off) =
+        *reinterpret_cast<const uint4*>(o);
+  } else {
+    float4* p = reinterpret_cast<float4*>(static_cast<float*>(y) + off);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16: cp.async row ring, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
@@ -106,20 +125,14 @@ constexpr int ACC = 32;                 // f32 accumulators a thread
 constexpr int HALF = ACC / 2;           // of them handed to the other group
 constexpr int XCH = 2 * HALF * 128 * 4;  // exchange and staging bytes
 
-// One input: the taps (A) live in registers, the ring takes 12 rows. Two
-// inputs: 144 registers of taps a thread would spill, so A is read from
-// shared memory (147,456 bytes) and the ring takes 4 rows of each input.
-template <int NIN>
-struct Ring {
-  static constexpr bool A_REG = NIN == 1;
-  static constexpr int XR = NIN == 1 ? 12 : 4;  // x rows of each input
-  static constexpr int DEPTH = XR - 3;          // commit groups in flight
-  static constexpr int STEPS = NIN * 18;        // k16 steps a warpgroup
-  static constexpr int TAPS = A_REG ? 0 : NIN * 9 * TAP;
-  static constexpr int SMEM = TAPS + NIN * XR * XROW + XCH;
-};
-static_assert(Ring<1>::SMEM <= 232448 && Ring<2>::SMEM <= 232448,
-              "227 KB of shared memory a block");
+// Two inputs (conv_wp_bf16_2in): both inputs' taps, 147,456 bytes, stay in
+// shared memory as the A operand (in registers they would take 144 a
+// thread), and the ring takes 4 rows of each input.
+constexpr int XR2 = 4;                    // x rows of each input
+constexpr int DEPTH2 = XR2 - 3;           // commit groups in flight
+constexpr int TAPS2 = 2 * 9 * TAP;
+constexpr int SMEM2 = TAPS2 + 2 * XR2 * XROW + XCH;
+static_assert(SMEM2 <= 232448, "227 KB of shared memory a block");
 
 // Partials a CTA writes: one for each sample its range of strip rows meets.
 // A range of at most `len` rows meets at most ceil((len - 1) / per_b) + 1
@@ -223,29 +236,26 @@ __device__ __forceinline__ void load_row(uint32_t dst,
   }
 }
 
-// k16 step s of the NIN * 36 of an output row: input s / 36, tap
-// (s % 36) / 4 = 3 dr + dc, ci 16 (s % 4) ..
+// k16 step s of the 36 of an output row of one input: tap s / 4 =
+// 3 dr + dc, ci 16 (s % 4) .. 16 (s % 4) + 15.
 struct Step {
-  int in, dr, dc, ks;
+  int dr, dc, ks;
 };
 
 __device__ __forceinline__ Step step_of(int s) {
   Step t;
-  t.in = s / 36;
-  const int tap = (s % 36) >> 2;
-  t.dr = tap / 3;
-  t.dc = tap - 3 * t.dr;
+  t.dr = s / 12;
+  t.dc = (s >> 2) - 3 * t.dr;
   t.ks = s & 3;
   return t;
 }
 
-// Every input's taps, HWIO [tap][ci][co] in global memory, into shared
+// Both inputs' taps, HWIO [tap][ci][co] in global memory, into shared
 // memory at `dst` as [in][tap][co][ci] (K-major) in the swizzle. A thread
 // gathers 8 ci of one co (lanes on neighbouring co: coalesced) into one
 // 16-byte store.
-template <int NIN>
 __device__ void load_taps(uint32_t dst, const Args& a) {
-  for (int i = threadIdx.x; i < NIN * 9 * C * 8; i += B_THREADS) {
+  for (int i = threadIdx.x; i < 2 * 9 * C * 8; i += B_THREADS) {
     const int co = i % C, v = (i / C) % 8, it = i / (C * 8);
     const unsigned short* src =
         static_cast<const unsigned short*>(it < 9 ? a.taps[0] : a.taps[1]) +
@@ -260,78 +270,69 @@ __device__ void load_taps(uint32_t dst, const Args& a) {
 }
 
 // Issue warpgroup WG's wgmma of output row offset j (ring offsets j .. j+2)
-// into acc and commit them: D[co][pixel] += taps x shifted x rows over its
-// STEPS k16 steps, all of whose taps, shifts and k offsets are constants.
-// The descriptors are linear in the address, so each is a ring row's plus
-// a constant.
-template <int NIN, int WG>
-__device__ __forceinline__ void issue_row(
-    float (&acc)[ACC], const uint32_t (&wa)[Ring<NIN>::A_REG ? Ring<NIN>::STEPS : 1][4],
-    uint32_t xring, uint32_t taps, int j) {
-  constexpr int XR = Ring<NIN>::XR, STEPS = Ring<NIN>::STEPS;
-  uint64_t rows[NIN][3];
+// of one input into acc and commit them: D[co][pixel] += taps x shifted x
+// rows over its 18 k16 steps, its taps (A) in registers. Taps, shifts and
+// k offsets are constants; a descriptor is linear in the address, so each
+// is a ring row's plus a constant.
+template <int WG, int XR>
+__device__ __forceinline__ void issue_row_1in(float (&acc)[ACC],
+                                              const uint32_t (&wa)[18][4],
+                                              uint32_t xring, int j) {
+  uint64_t rows[3];
 #pragma unroll
-  for (int in = 0; in < NIN; ++in)
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr)
-      rows[in][dr] = desc(xring + (in * XR + (j + dr) % XR) * XROW);
-  const uint64_t dtaps = desc(taps);
+  for (int dr = 0; dr < 3; ++dr)
+    rows[dr] = desc(xring + (j + dr) % XR * XROW);
 #pragma unroll
   for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < STEPS; ++i) {
-    const Step st = step_of(WG * STEPS + i);
-    const uint64_t b = rows[st.in][st.dr] + ((st.dc * PIX + st.ks * 32) >> 4);
-    if constexpr (Ring<NIN>::A_REG) {
-      wgmma_n64(acc, wa[i], b);
-    } else {
-      const int tap = (st.in * 3 + st.dr) * 3 + st.dc;
-      wgmma_n64_ss(acc, dtaps + ((tap * TAP + st.ks * 32) >> 4), b);
-    }
+  for (int i = 0; i < 18; ++i) {
+    const Step st = step_of(WG * 18 + i);
+    wgmma_n64(acc, wa[i],
+              rows[st.dr] + ((st.dc * PIX + st.ks * 32) >> 4));
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-template <int NIN>
+// The same for input wg of two, both operands in shared memory: the taps
+// at `taps`, the 4-row ring of input wg at xring + wg * 4 rows. One code
+// path for both groups (a branch around wgmma makes ptxas serialize them).
+__device__ __forceinline__ void issue_row_2in(float (&acc)[ACC],
+                                              uint32_t xring, uint32_t taps,
+                                              int j, int wg) {
+  uint64_t rows[3];
+#pragma unroll
+  for (int dr = 0; dr < 3; ++dr)
+    rows[dr] = desc(xring + (wg * XR2 + (j + dr) % XR2) * XROW);
+  const uint64_t tp = desc(taps + wg * 9 * TAP);
+#pragma unroll
+  for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 36; ++i) {
+    const Step st = step_of(i);
+    wgmma_n64_ss(acc, tp + (((3 * st.dr + st.dc) * TAP + st.ks * 32) >> 4),
+                 rows[st.dr] + ((st.dc * PIX + st.ks * 32) >> 4));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
 __global__ void __launch_bounds__(B_THREADS, 1)
-conv_wp_bf16(const Args a) {
-  using R = Ring<NIN>;
-  constexpr int XR = R::XR, DEPTH = R::DEPTH, STEPS = R::STEPS;
+conv_wp_bf16_2in(const Args a) {
+  constexpr int XR = XR2, DEPTH = DEPTH2;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t taps = smem_addr(smem);
-  const uint32_t xring = taps + R::TAPS;
-  float* xch = reinterpret_cast<float*>(smem + R::TAPS + NIN * XR * XROW);
+  const uint32_t xring = taps + TAPS2;
+  float* xch = reinterpret_cast<float*>(smem + TAPS2 + 2 * XR * XROW);
   unsigned char* stage = reinterpret_cast<unsigned char*>(xch);
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int wi = t >> 5, lane = tid & 31;
   const __nv_bfloat16* xg[2] = {static_cast<const __nv_bfloat16*>(a.x[0]),
                                 static_cast<const __nv_bfloat16*>(a.x[1])};
 
-  // A, the taps: with one input in registers for the kernel's life (step
-  // i's fragment holds co 16 wi + lane / 4 (+ 8) and ci 16 ks + 2 (lane % 4)
-  // (+ 1, + 8), two bf16 a register, lower ci in the low half); with two in
-  // shared memory, visible to the tensor cores after the first row's fence
-  // and barrier
   const int cr = 16 * wi + (lane >> 2);
-  uint32_t wa[R::A_REG ? STEPS : 1][4];
-  if constexpr (R::A_REG) {
-#pragma unroll
-    for (int i = 0; i < STEPS; ++i) {
-      const Step st = step_of(wg * STEPS + i);
-      const unsigned short* p =
-          static_cast<const unsigned short*>(a.taps[0]) +
-          ((size_t)(3 * st.dr + st.dc) * C + 16 * st.ks + 2 * (lane & 3)) *
-              C + cr;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const unsigned short* q = p + (r >> 1) * 8 * C + (r & 1) * 8;
-        wa[i][r] = (uint32_t)__ldg(q) | (uint32_t)__ldg(q + C) << 16;
-      }
-    }
-  } else {
-    load_taps<NIN>(taps, a);
-  }
+  load_taps(taps, a);  // visible to the tensor cores after the first
+                       // row's fence and barrier
 
   // after the exchange a thread holds pixels px0 + 8 jj + (e & 1) of the
   // strip, jj < 4, and co cr + 8 (e >> 1); the parity of a pixel is e & 1
@@ -407,7 +408,7 @@ conv_wp_bf16(const Args a) {
     }
   };
 
-  float acc0[ACC], acc1[ACC];
+  float acc[ACC];
   for (;;) {
     const bool done = g >= g_end;
     if (a.stats && (done || g / per_b != b_cur)) {
@@ -446,7 +447,7 @@ conv_wp_bf16(const Args a) {
     // ring offset o holds image row ra - 1 + o of every input
     auto load = [&](int o) {
 #pragma unroll
-      for (int in = 0; in < NIN; ++in)
+      for (int in = 0; in < 2; ++in)
         load_row(xring + (in * XR + o % XR) * XROW, xg[in], b, ra - 1 + o, c0,
                  h, w);
     };
@@ -459,38 +460,217 @@ conv_wp_bf16(const Args a) {
       cp_commit();
     }
 
-    // Step j issues row j's wgmma into cur, finishes row j-1 from prev
-    // while they run, then waits for them: the tensor cores multiply during
-    // the epilogue. Row j-1's wgmma were waited for before row j's barrier,
-    // after which the ring slot of offset j-1 is refilled.
-    auto step = [&](int j, float (&cur)[ACC], const float (&prev)[ACC]) {
-      if (j < len) {
-        cp_wait<DEPTH - 1>();  // group j has landed, for this thread;
+    for (int j = 0; j < len; ++j) {
+      cp_wait<DEPTH - 1>();  // group j has landed, for this thread;
+      // make it visible to the tensor cores (the async proxy) ...
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // ... for all threads; row j-1's wgmma are done
+      if (j + DEPTH < len) load(j + DEPTH + 2);
+      cp_commit();
+      issue_row_2in(acc, xring, taps, j, wg);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < ACC; ++k) asm volatile("" : "+f"(acc[k])::"memory");
+      finish(acc, b, ra + j, c0);
+    }
+    __syncthreads();  // the next segment's prologue refills the ring
+    g += len;
+  }
+}
+
+// One input, warp-specialized: warpgroups 0 and 1 keep the ring and run the
+// products, each over half of K with its taps in registers, and hand their
+// f32 partials of a row to warpgroup 2 through a double buffer in shared
+// memory; warpgroup 2 sums them and runs the epilogue while they multiply
+// the next row. Named barriers pair them up (bar 0 is not used).
+constexpr int WS_THREADS = 384;
+constexpr int WS_XR = 12;                    // x rows in the ring
+constexpr int WS_DEPTH = WS_XR - 3;          // commit groups in flight
+constexpr int PART_F = SW * C;               // floats of one partial
+constexpr int WS_SMEM = WS_XR * XROW + 4 * PART_F * 4 + 4 * NSTAT * 4;
+static_assert(WS_SMEM <= 232448, "227 KB of shared memory a block");
+enum { BAR_MMA = 1, BAR_READY = 2, BAR_FREE = 4, BAR_EPI = 6 };
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Float offset of (pixel m, channel co) in a [64][64] f32 partial: 16-byte
+// chunks XOR the pixel's low 3 bits, so the product warps' scattered
+// writes and the epilogue's 16-byte reads meet few bank conflicts.
+__device__ __forceinline__ int part_off(int m, int co) {
+  return m * C + ((((co >> 2) ^ (m & 7))) << 2) + (co & 3);
+}
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+conv_wp_bf16_1in(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t xring = smem_addr(smem);
+  float* pbuf = reinterpret_cast<float*>(smem + WS_XR * XROW);
+  float* red = pbuf + 4 * PART_F;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int wi = (tid >> 5) & 3;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x[0]);
+
+  const int h = a.h, w = a.w;
+  const int strips = (w + SW - 1) / SW, per_b = strips * h;
+  const int total = a.n * per_b;
+  const int q = total / gridDim.x, rem = total % gridDim.x;
+  const int bid = blockIdx.x;
+  const int g_begin = bid * q + min(bid, rem);
+  const int g_end = g_begin + q + (bid < rem);
+
+  if (wg < 2) {
+    // products: the taps of this group's 18 k16 steps in registers, as in
+    // conv_wp_bf16<1>
+    const int cr = 16 * wi + (lane >> 2);
+    uint32_t wa[18][4];
+#pragma unroll
+    for (int i = 0; i < 18; ++i) {
+      const Step st = step_of(wg * 18 + i);
+      const unsigned short* p =
+          static_cast<const unsigned short*>(a.taps[0]) +
+          ((size_t)(3 * st.dr + st.dc) * C + 16 * st.ks + 2 * (lane & 3)) *
+              C + cr;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const unsigned short* qq = p + (r >> 1) * 8 * C + (r & 1) * 8;
+        wa[i][r] = (uint32_t)__ldg(qq) | (uint32_t)__ldg(qq + C) << 16;
+      }
+    }
+    float acc[ACC];
+    int n = 0;  // rows of this CTA so far
+    for (int g = g_begin; g < g_end;) {
+      const int bs = g / h;
+      const int ra = g - bs * h;
+      const int len = min(g_end - bs * h, h) - ra;
+      const int b = bs / strips, c0 = (bs - b * strips) * SW;
+      auto load = [&](int o) {
+        load_row(xring + (o % WS_XR) * XROW, x, b, ra - 1 + o, c0, h, w);
+      };
+      bar_sync(BAR_MMA, 256);  // the last segment's wgmma are done
+      load(0);
+      load(1);
+#pragma unroll
+      for (int k = 0; k < WS_DEPTH; ++k) {
+        if (k < len) load(k + 2);
+        cp_commit();
+      }
+      for (int j = 0; j < len; ++j, ++n) {
+        cp_wait<WS_DEPTH - 1>();  // group j has landed, for this thread;
         // make it visible to the tensor cores (the async proxy) ...
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();  // ... for all threads
-        if (j + DEPTH < len) load(j + DEPTH + 2);
+        bar_sync(BAR_MMA, 256);  // ... for both groups; row j-1's are done
+        if (j + WS_DEPTH < len) load(j + WS_DEPTH + 2);
         cp_commit();
         if (wg)
-          issue_row<NIN, 1>(cur, wa, xring, taps, j);
+          issue_row_1in<1, WS_XR>(acc, wa, xring, j);
         else
-          issue_row<NIN, 0>(cur, wa, xring, taps, j);
-      } else {
-        __syncthreads();  // the staging buffer's last reads are done
-      }
-      if (j > 0) finish(prev, b, ra + j - 1, c0);
-      if (j < len) {
+          issue_row_1in<0, WS_XR>(acc, wa, xring, j);
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
         for (int k = 0; k < ACC; ++k)
-          asm volatile("" : "+f"(cur[k])::"memory");
+          asm volatile("" : "+f"(acc[k])::"memory");
+        // acc[4 jb + e]: co cr + 8 (e >> 1), pixel 8 jb + 2 (lane % 4) +
+        // (e & 1), into buffer n % 2 once the epilogue has read row n - 2
+        if (n >= 2) bar_sync(BAR_FREE + (n & 1), WS_THREADS);
+        float* p = pbuf + ((n & 1) * 2 + wg) * PART_F;
+#pragma unroll
+        for (int k = 0; k < ACC; ++k)
+          p[part_off(8 * (k >> 2) + 2 * (lane & 3) + (k & 1),
+                     cr + 8 * ((k >> 1) & 1))] = acc[k];
+        bar_arrive(BAR_READY + (n & 1), WS_THREADS);
       }
-    };
-    for (int j = 0; j <= len; j += 2) {
-      step(j, acc0, acc1);
-      if (j + 1 <= len) step(j + 1, acc1, acc0);
+      g += len;
     }
-    __syncthreads();  // the next segment's prologue refills the ring
+    // match the epilogue's last releases
+    for (int k = n > 2 ? n - 2 : 0; k < n; ++k)
+      bar_sync(BAR_FREE + (k & 1), WS_THREADS);
+    return;
+  }
+
+  // epilogue: thread e takes channels 8 cg .. 8 cg + 7 of pixels e / 8 +
+  // 16 i, all of parity par
+  const int e = tid - 256, cg = e & 7, par = (e >> 3) & 1;
+  const int ew = e >> 5;  // warp of the group
+  float bias[8], s1[8], s2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bias[i] = a.relu ? __ldg(a.bias + par * C + 8 * cg + i) : 0.f;
+    s1[i] = s2[i] = 0.f;
+  }
+  const int nslot = range_slots(total, gridDim.x, per_b);
+  const int b_first = g_begin / per_b;
+  int b_cur = b_first, n = 0;
+  const int osz = a.out_bf16 ? 2 : 4;
+  for (int g = g_begin;;) {
+    const bool done = g >= g_end;
+    if (a.stats && (done || g / per_b != b_cur)) {
+      // this CTA's partial of sample b_cur: the two threads of a class in a
+      // warp meet by a shuffle, the four warps in shared memory
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], 16);
+        s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], 16);
+      }
+      if (lane < 16) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          red[ew * NSTAT + par * C + 8 * cg + i] = s1[i];
+          red[ew * NSTAT + 2 * C + par * C + 8 * cg + i] = s2[i];
+        }
+      }
+      bar_sync(BAR_EPI, 128);
+      float* out = a.part + ((size_t)bid * nslot + (b_cur - b_first)) * NSTAT;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int v = e + 128 * half;
+        out[v] = red[v] + red[NSTAT + v] + red[2 * NSTAT + v] +
+                 red[3 * NSTAT + v];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.f;
+      b_cur = g / per_b;
+      bar_sync(BAR_EPI, 128);  // red is rewritten by the next flush
+    }
+    if (done) break;
+    const int bs = g / h;
+    const int ra = g - bs * h;
+    const int len = min(g_end - bs * h, h) - ra;
+    const int b = bs / strips, c0 = (bs - b * strips) * SW;
+    for (int j = 0; j < len; ++j, ++n) {
+      bar_sync(BAR_READY + (n & 1), WS_THREADS);
+      const float* p0 = pbuf + (n & 1) * 2 * PART_F;
+      const float* p1 = p0 + PART_F;
+      unsigned char* yrow = static_cast<unsigned char*>(a.y) +
+                            (((size_t)b * h + ra + j) * w + c0) * C * osz;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = (e >> 3) + 16 * i;
+        const int o0 = part_off(m, 8 * cg), o1 = part_off(m, 8 * cg + 4);
+        const float4 u0 = *reinterpret_cast<const float4*>(p0 + o0);
+        const float4 u1 = *reinterpret_cast<const float4*>(p0 + o1);
+        const float4 w0 = *reinterpret_cast<const float4*>(p1 + o0);
+        const float4 w1 = *reinterpret_cast<const float4*>(p1 + o1);
+        float v[8] = {u0.x + w0.x, u0.y + w0.y, u0.z + w0.z, u0.w + w0.w,
+                      u1.x + w1.x, u1.y + w1.y, u1.z + w1.z, u1.w + w1.w};
+        const bool inside = c0 + m < w;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (a.relu) v[k] = fmaxf(v[k] + bias[k], 0.f);
+          if (a.stats && inside) {
+            s1[k] += v[k];
+            s2[k] += v[k] * v[k];
+          }
+        }
+        if (inside) store8(yrow, (size_t)m * C + 8 * cg, v, a.out_bf16);
+      }
+      bar_arrive(BAR_FREE + (n & 1), WS_THREADS);
+    }
     g += len;
   }
 }
@@ -538,25 +718,6 @@ __device__ void load_window(T* xs, const T* __restrict__ x, const Tile& t,
       val = __ldg(reinterpret_cast<const uint4*>(
           x + ((((size_t)t.b * h + gr) * w + gc) * C + v * VEC)));
     *reinterpret_cast<uint4*>(xs + (sr * SCOLS + sc) * XS + v * VEC) = val;
-  }
-}
-
-__device__ __forceinline__ float epilogue(float v, float b, int relu) {
-  return relu ? fmaxf(v + b, 0.f) : v;
-}
-
-__device__ __forceinline__ void store8(void* y, size_t off, const float* v,
-                                       int out_bf16) {
-  if (out_bf16) {
-    __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j]);
-    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(y) + off) =
-        *reinterpret_cast<const uint4*>(o);
-  } else {
-    float4* p = reinterpret_cast<float4*>(static_cast<float*>(y) + off);
-    p[0] = make_float4(v[0], v[1], v[2], v[3]);
-    p[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
@@ -705,10 +866,10 @@ extern "C" int onet_conv3x3_wp_setup(int n, int h, int w, int nin,
   const void* kern;
   int smem, threads;
   if (in_bf16) {
-    kern = nin == 1 ? (const void*)conv_wp_bf16<1>
-                    : (const void*)conv_wp_bf16<2>;
-    smem = nin == 1 ? Ring<1>::SMEM : Ring<2>::SMEM;
-    threads = B_THREADS;
+    kern = nin == 1 ? (const void*)conv_wp_bf16_1in
+                    : (const void*)conv_wp_bf16_2in;
+    smem = nin == 1 ? WS_SMEM : SMEM2;
+    threads = nin == 1 ? WS_THREADS : B_THREADS;
   } else {
     kern = (const void*)conv_wp_f32;
     smem = X_BYTES_F + RED_BYTES;
@@ -782,9 +943,9 @@ extern "C" int onet_conv3x3_wp(const void* xa, const void* xb,
   if (!in_bf16)
     conv_wp_f32<<<nblk, THREADS, X_BYTES_F + RED_BYTES, st>>>(a);
   else if (nin == 1)
-    conv_wp_bf16<1><<<nblk, B_THREADS, Ring<1>::SMEM, st>>>(a);
+    conv_wp_bf16_1in<<<nblk, WS_THREADS, WS_SMEM, st>>>(a);
   else
-    conv_wp_bf16<2><<<nblk, B_THREADS, Ring<2>::SMEM, st>>>(a);
+    conv_wp_bf16_2in<<<nblk, B_THREADS, SMEM2, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || !stats) return (int)err;
   const int strips = (w + SW - 1) / SW;
   if (in_bf16)
