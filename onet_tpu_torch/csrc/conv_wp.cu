@@ -1,8 +1,8 @@
 // Pair-packed SAME 3x3 convolution with its two epilogues, for sm_90a.
 //
 // Replaces the Pallas kernels of onet_tpu/ops/pallas_conv.py:
-//   _fwd_kernel  (via conv3x3_wp_raw)   y = conv(x, w)
-//   _fwd2_kernel (via conv3x3_wp2_raw)  y = conv(xa, wa) + conv(xb, wb)
+//   _fwd_kernel  (:212, via conv3x3_wp_raw)   y = conv(x, w)
+//   _fwd2_kernel (:259, via conv3x3_wp2_raw)  y = conv(xa, wa) + conv(xb, wb)
 // each with the optional bias+ReLU store epilogue (serving) and the optional
 // BatchNorm-statistics epilogue (training): per-sample lane sums s1, s2
 // [n][128] of the f32 value after bias/ReLU and before the cast, lane
@@ -21,8 +21,8 @@
 // output: 0.313 ms of tensor-core time at 989 TFLOP/s and 0.321 ms of HBM
 // time at 3.35 TB/s; with two inputs 0.625 ms of operations against 0.481 ms
 // of bytes; at the serving shape (N=64) four times that. Both limits sit
-// close together, so every x byte is read once from HBM and loads overlap
-// the products. The bf16 design (conv_wp_bf16<NIN>):
+// close together, so every x byte is read once from HBM and loads, products
+// and the epilogue overlap. The bf16 kernels share:
 //   * work: the image rows of every 64-pixel column strip, strip after
 //     strip, numbered g = (b * strips + strip) * H + r; persistent CTAs,
 //     one per SM, each take an equal contiguous range of g (no wave tail)
@@ -32,42 +32,49 @@
 //     padding) and masked stores, so any H and any W = 2 Wp work;
 //   * loads: cp.async (16 bytes, zero-fill through the source-size operand
 //     outside the image) into a ring in shared memory of x rows of 66
-//     pixels (the +-1 halo), 8,448 bytes each: XR = 10 rows with one input,
-//     4 rows of each input with two. Each x row is fetched once from HBM
-//     and serves the three dr taps of three output rows. One commit group
-//     per output row; XR - 3 groups (7 rows, or 1 row of each input) are in
-//     flight while a row multiplies (cp.async.wait_group XR - 4, one
-//     barrier per row). The 128-byte pixel rows are XOR-swizzled as the
-//     tensor cores' 128-byte swizzle has it (16-byte chunk ^ bits 7..9 of
-//     the shared address), so a pixel shift dc is a start dc * 128 bytes
-//     on, with no copy;
-//   * taps: each input's nine taps, loaded once per CTA and transposed to
-//     [tap][co][ci] (ci contiguous, the same swizzle): 73,728 bytes an
-//     input;
-//   * products: two warpgroups (256 threads) share an output row of the
-//     strip, M = its 64 pixels, N = the 64 co, K = NIN * 9 taps * 64 ci
-//     split in halves: with one input warpgroup 0 takes the first 18 of the
-//     36 k16 steps, with two it takes input a and warpgroup 1 input b.
-//     Each warp holds a 16-pixel x 64-co f32 tile, 32 accumulators a thread,
-//     in the layout of the m64n64 wgmma accumulator, and runs ldmatrix +
-//     mma.sync.m16n8k16 on the swizzled rows and taps;
-//   * epilogue, from the registers: the warpgroups swap halves through 8 KB
-//     of shared memory each way, so warpgroup wg ends with the summed co
-//     32 wg .. 32 wg + 31; bias, ReLU and the cast in registers, then the
-//     row goes through a 16 KB staging buffer (the same bytes, swizzled by
-//     pixel) and out in 16-byte coalesced stores: the strip's 64 pixels of
-//     an output row are contiguous in y;
-//   * statistics: every pixel a thread holds has the parity of its lane
-//     bit 2, so each thread sums its values and squares per channel in
-//     registers over the rows of its range; when the range moves to another
-//     sample, and at its end, lanes meet by shuffles, the 4 warps of each
-//     warpgroup in shared memory, and the CTA writes one [256] partial (s1
-//     lanes, then s2 lanes) for that sample. A partial never spans two
-//     samples. stats_reduce_ranges then sums each sample's partials in CTA
-//     order: the same inputs give the same bits, run to run (no atomics).
-//   * shared memory: 73,728 B of taps + 84,480 B of ring + 16,384 B of
-//     exchange = 174,592 B with one input; 147,456 + 67,584 + 16,384 =
-//     231,424 B of the 232,448 a block may have with two.
+//     pixels (the +-1 halo), 8,448 bytes each. Each x row is fetched once
+//     from HBM and serves the three dr taps of three output rows. One
+//     commit group per output row, XR - 3 of them in flight while a row
+//     multiplies. The 128-byte pixel rows are XOR-swizzled as the tensor
+//     cores' 128-byte swizzle has it (16-byte chunk ^ bits 7..9 of the
+//     shared address), so the pixel shift dc of a tap is a descriptor that
+//     starts dc * 128 bytes on, with no copy (the tensor cores swizzle by
+//     the absolute address, as conv_wp_dw.cu found);
+//   * products: wgmma m64n64k16, D[co][pixel] for one output row of the
+//     strip: M = the 64 co, N = the 64 pixels, K = 9 taps x 64 ci an input,
+//     f32 accumulators (32 a thread). B, the shifted x rows, is read
+//     K-major from the ring. Two warpgroups split K in halves: with one
+//     input each takes 18 of the 36 k16 steps, with two each takes one
+//     input. co as M leaves N to the pixels, where the strip can grow, and
+//     lets A (the taps) come from registers;
+//   * statistics: a thread sums its f32 values and their squares by channel
+//     and pixel parity in registers over the rows of its range; when the
+//     range moves to another sample, and at its end, the CTA meets them in
+//     shared memory and writes one [256] partial (s1 lanes, then s2 lanes)
+//     for that sample. A partial never spans two samples. The reduce kernel
+//     sums each sample's partials in CTA order: the same inputs give the
+//     same bits, run to run (no atomics).
+// One input (conv_wp_bf16_1in, 384 threads: 6 of the 7 launches of a train
+// step, 2 of the 3 of a served batch): warp-specialized. Warpgroups 0 and 1
+// hold their 18 steps' taps in registers for the kernel's life (72 a
+// thread: A from registers halves the shared-memory reads of an n64
+// product, 2 KB a step instead of 4), load the ring (XR = 12 rows) and
+// multiply; after each row they write their f32 partials to a double
+// buffer in shared memory and go on to the next row, while warpgroup 2
+// sums the two partials and runs the epilogue (bias, ReLU, statistics, the
+// cast, 16-byte coalesced stores: the strip's pixels of an output row are
+// contiguous in y). Named barriers pair them. Shared memory: 101,376 B of
+// ring + 65,536 B of partials + 4,096 B for the statistics = 171,008 B;
+// ptxas: 168 registers (the cap of 384 threads), no spills.
+// Two inputs (conv_wp_bf16_2in, 256 threads): both inputs' taps, 147,456 B,
+// stay in shared memory as A (in registers they would take 144 a thread),
+// which leaves room for 4 ring rows of each input (67,584 B) and one 16 KB
+// buffer, so the two warpgroups swap halves of their partials through it
+// (each ends with 32 of the 64 pixels summed) and run the epilogue
+// themselves, through the same buffer as a staging area. 231,424 B of the
+// 232,448 a block may have; ptxas: 244 registers, no spills.
+// An earlier form of this design fed mma.sync through ldmatrix, with the
+// taps in shared memory: PERF.md has its numbers.
 //
 // f32 inputs take a CUDA-core path (one thread per output pixel, 64 f32
 // accumulators, weights read through the read-only cache, 8-row x 32-pixel

@@ -16,10 +16,13 @@ The card kernels:
 * ``csrc/conv_wp.cu`` replaces ``_fwd_kernel`` and ``_fwd2_kernel``
   (``onet_tpu/ops/pallas_conv.py:212,259``), with the bias+ReLU epilogue and
   the BatchNorm-stats epilogue (``stats=True``: per-sample lane sums from
-  the f32 accumulator, reduced across CTAs by a deterministic second pass).
-  It reads the packed tensor as the NHWC tensor it is byte for byte and runs
-  the 9 real 64x64 taps, taken from Wc's blocks, instead of the 6 128x128
-  products with their 25% zeros.
+  the f32 accumulator, one partial per CTA and sample, summed in CTA order
+  by a second pass). It reads the packed tensor as the NHWC tensor it is
+  byte for byte and runs the 9 real 64x64 taps, taken from Wc's blocks,
+  instead of the 6 128x128 products with their 25% zeros: for bf16, rows
+  of 64-pixel strips fed through a cp.async ring to wgmma. Its set-up
+  (``onet_conv3x3_wp_setup``: shared-memory attribute, grid, partial
+  count) runs once per card, shape, input count and dtype (``_setup``).
 * ``csrc/conv_wp_dw.cu`` replaces ``_dw_kernel`` (``pallas_conv.py:457``):
   the 9 taps of the weight gradient as 64x64 products over the pixels, per
   CTA partials summed by a deterministic second pass.
