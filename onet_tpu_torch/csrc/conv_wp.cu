@@ -73,8 +73,9 @@
 // (each ends with 32 of the 64 pixels summed) and run the epilogue
 // themselves, through the same buffer as a staging area. 231,424 B of the
 // 232,448 a block may have; ptxas: 244 registers, no spills.
-// An earlier form of this design fed mma.sync through ldmatrix, with the
-// taps in shared memory: PERF.md has its numbers.
+// Not mma.sync through ldmatrix: with 16 pixels a warp, every warp re-reads
+// a tap's 64 co each k16 step, and shared-memory reads bound it at 2.5x
+// this kernel's time (PERF.md, PR 6).
 //
 // f32 inputs take a CUDA-core path (one thread per output pixel, 64 f32
 // accumulators, weights read through the read-only cache, 8-row x 32-pixel
@@ -229,6 +230,8 @@ __device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
 
 // Issue the copies of image row r (zero outside 0..h-1) of the strip at
 // pixel c0, with the halo (pixels c0-1 .. c0+SW), into the ring row `dst`.
+// Called by threads 0 .. B_THREADS-1 (both warpgroups of 2in, the product
+// warpgroups of 1in).
 __device__ __forceinline__ void load_row(uint32_t dst,
                                          const __nv_bfloat16* __restrict__ src,
                                          int b, int r, int c0, int h, int w) {
@@ -485,11 +488,9 @@ conv_wp_bf16_2in(const Args a) {
   }
 }
 
-// One input, warp-specialized: warpgroups 0 and 1 keep the ring and run the
-// products, each over half of K with its taps in registers, and hand their
-// f32 partials of a row to warpgroup 2 through a double buffer in shared
-// memory; warpgroup 2 sums them and runs the epilogue while they multiply
-// the next row. Named barriers pair them up (bar 0 is not used).
+// One input, warp-specialized (the design is in the note at the top):
+// warpgroups 0 and 1 load and multiply, warpgroup 2 runs the epilogue.
+// Named barriers pair them up; bar 0 (__syncthreads) is not used.
 constexpr int WS_THREADS = 384;
 constexpr int WS_XR = 12;                    // x rows in the ring
 constexpr int WS_DEPTH = WS_XR - 3;          // commit groups in flight
