@@ -2,8 +2,8 @@
 // with the optional BatchNorm-statistics epilogue, for sm_90a.
 //
 // Replaces the Pallas kernels of onet_tpu/ops/pallas_conv_bd.py:
-//   _bd_fwd_kernel  (via conv3x3_bd_raw)    y = conv(x, w)
-//   _bd_fwd2_kernel (via conv3x3_bd2in_raw) y = conv(xa, wa) + conv(xb, wb)
+//   _bd_fwd_kernel  (:96, via conv3x3_bd_raw)    y = conv(x, w)
+//   _bd_fwd2_kernel (:119, via conv3x3_bd2in_raw) y = conv(xa, wa) + conv(xb, wb)
 // x [n, h, w, 128] and w [3, 3, 128, 128] (HWIO, any dense weight: the
 // block-diagonal zeros of bd2 are multiplied like any other value) are bf16;
 // the accumulator is f32; y is stored as bf16 or f32. With stats, per-sample
@@ -12,285 +12,581 @@
 // What bounds it on the H100. At the probe's sites (n = 8, 512x512) one input
 // is 2 * 8 * 512^2 * 128 * 128 * 9 = 6.2e11 flops, 0.625 ms of tensor-core
 // time at 989 TFLOP/s, against 1.07 GB of input and output, 0.32 ms at
-// 3.35 TB/s: operations bound it (the two-input form: 1.25 ms).
+// 3.35 TB/s: operations bound it (the two-input form: 1.25 ms). So the tensor
+// cores must never wait: on loads, on barriers, or on the epilogue.
 //
-// Design, from csrc/conv_wp.cu:
-//  * persistent CTAs (one per SM, 16 warps) walk tiles of 8 output rows x
-//    32 pixels x all 128 output lanes; the (8+2) x (32+2) x 128 input window,
-//    halo and SAME zeros included, is staged in shared memory once per
-//    (tile, input), so each input pixel is read from HBM ~1.3 times;
-//  * nine 128x128 bf16 taps are 295 KB, more than a block's 227 KB, and the
-//    two-input form needs twice that. So the taps stream through shared
-//    memory one tap (32 KB) at a time, double-buffered with cp.async: tap
-//    t+1 is in flight while the warps multiply with tap t. A tile reads
-//    295 KB of taps per input from L2 (the weights stay L2-resident), for
-//    75 MFLOP of products;
-//  * warp w owns output row w % 8 and output lanes 64 * (w / 8) .. + 63:
-//    2 x 4 WMMA bf16 16x16x16 fragments accumulate in f32 over the 9 taps x
-//    8 k-steps of each input;
-//  * the epilogue goes fragment by fragment through a 1 KB per-warp slice
-//    of the (then idle) window buffer: 16-byte stores of y, and for the
-//    statistics each lane sums one lane column over half the fragment's
-//    pixels; the two halves meet by a shuffle, the 8 row warps in shared
-//    memory, and each tile writes a [256] partial (s1 lanes, s2 lanes).
-//    stats_reduce sums a sample's tile partials in tile order: the result
-//    does not depend on which CTA ran which tile (no atomics).
-// Window loads are synchronous 16-byte loads; wgmma and TMA are later work.
+// Design (one kernel, conv_bd, for both forms):
+//  * work: output tiles of 2 rows x 128 pixels x all 128 co, numbered in
+//    strip order g = ((b * strips + strip) * rowpairs + rowpair); persistent
+//    CTAs, one per SM, each take an equal contiguous range of g, so a tile's
+//    window rows are still in L2 from the tile above it;
+//  * window planes: the K loop runs plane by plane, a plane being 64 ci of
+//    one input (one input is 2 planes, two inputs 4): the 4 rows x 130
+//    pixels (halo included) x 64 ci of the tile's window, 66,560 B, one
+//    128-byte row a pixel. One TMA load (a 4-D tensor map over x, built on
+//    the host) fetches a plane; its out-of-bounds zero fill is the SAME
+//    padding and the ragged edges, and its 128-byte swizzle is the tensor
+//    cores' own. Two plane buffers: the next plane, or the next tile's
+//    first, loads while the current one multiplies;
+//  * tap ring: the nine 128x128 taps are 295 KB an input, more than a
+//    block's 227 KB, so they stream in chunks of one tap x 64 ci x 128 co
+//    (16 KB) in the K loop's order through a 5-stage ring, one bulk copy a
+//    chunk. The wrapper lays the taps out once per call as [plane][tap][co]
+//    [64 ci] with the 16-byte chunks of each co row already swizzled
+//    (ops/conv_bd.py::taps_bd), so a plain bulk copy lands them as the
+//    tensor cores read them. Each tile reads 295 KB of taps an input from
+//    L2 (the weights stay L2-resident);
+//  * products: wgmma m64n128k16, D[pixel][co], A = the window plane (pixels
+//    K-major: a tap's pixel shift dc is a descriptor dc * 128 bytes on, its
+//    row shift dr one (dr * 130 * 128) bytes on, no copy; the tensor cores
+//    swizzle by the absolute shared address), B = the tap chunk (co
+//    K-major). Two consumer warpgroups each own one output row of the tile:
+//    2 x m64n128 a k16 step, 128 f32 accumulators a thread. One issue path
+//    for both groups (the row is in the descriptor), so ptxas does not
+//    serialize the wgmma. m64n128 with both operands in shared memory reads
+//    96 B a clock of tensor-core time, 75% of shared memory's 128 B;
+//  * synchronization: mbarriers only. A producer warp (one thread) issues
+//    the TMA and bulk copies against "full" barriers (transaction bytes);
+//    each consumer warp arrives on "empty" barriers once the wgmma that
+//    read a chunk or a plane have completed (wgmma.wait_group 1 keeps one
+//    group of 8 in flight while the next is issued). No __syncthreads in
+//    the main loop;
+//  * epilogue, from the registers: bf16x2 (or float2) stores of y straight
+//    to global memory, and the statistics summed in registers across the
+//    tiles of one sample (32 co x 2 a thread). When the range moves to
+//    another sample, and at its end, the CTA meets them in shared memory
+//    and writes one [256] partial (s1 lanes, then s2 lanes) for that
+//    sample; stats_reduce_ranges sums each sample's partials in CTA order:
+//    the same inputs give the same bits, run to run (no atomics). Meanwhile
+//    the producer is already loading the next tile's planes and taps.
+// Shared memory: 2 planes 133,120 B + ring 81,920 B + 8,192 B for the
+// statistics + barriers, 223,360 B (+1 KB to align to the swizzle atom).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int L = 128;            // lanes of the stacked layout, in and out
-constexpr int HALF = 64;          // output lanes per warp
-constexpr int TH = 8;             // output rows per tile
-constexpr int TW = 32;            // output pixels per tile row
-constexpr int WARPS = 2 * TH;     // row warp % TH, output half warp / TH
-constexpr int THREADS = 32 * WARPS;
-constexpr int SROWS = TH + 2;     // window rows incl. halo
-constexpr int SCOLS = TW + 2;     // window pixels per row incl. halo
-constexpr int XS = 144;           // window pixel stride (elements): 288 B,
-                                  // keeps each tap column 32-byte aligned
-constexpr int WS = 136;           // tap row stride (elements)
-constexpr int X_BYTES = SROWS * SCOLS * XS * 2;   // 97,920
-constexpr int TAP_ELEMS = L * WS;
-constexpr int TAP_BYTES = TAP_ELEMS * 2;          // 34,816
-constexpr int NSTAT = 2 * L;                      // s1 lanes, s2 lanes
-constexpr int RED_BYTES = TH * NSTAT * 4;         // 8,192
-constexpr int SMEM = X_BYTES + 2 * TAP_BYTES + RED_BYTES;   // 175,744
+constexpr int L = 128;                 // lanes, in and out
+constexpr int TP = 128;                // output pixels per tile row
+constexpr int TR = 2;                  // output rows per tile
+constexpr int PW = TP + 2;             // plane pixels incl. halo
+constexpr int PR = TR + 2;             // plane rows incl. halo
+constexpr int PIX = 128;               // bytes of one pixel of a plane (64 ci)
+constexpr int PLANE = PR * PW * PIX;   // 66,560
+constexpr int CHUNK = L * PIX;         // one tap x 64 ci x 128 co: 16,384
+constexpr int RING = 5;                // tap chunks in flight
+constexpr int NSTAT = 2 * L;           // s1 lanes, s2 lanes
+constexpr int CONSUMERS = 256;         // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warp
+constexpr int OFF_RING = 2 * PLANE;
+constexpr int OFF_RED = OFF_RING + RING * CHUNK;
+constexpr int OFF_BAR = OFF_RED + (CONSUMERS / 32) * NSTAT * 4;
+constexpr int SMEM = OFF_BAR + 128 + 1024;  // + alignment slack
+static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+static_assert(PLANE % 1024 == 0 && CHUNK % 1024 == 0, "swizzle atoms");
+static_assert(RING <= 9, "the next plane is issued after tap RING - 1");
 
 struct Args {
-  const __nv_bfloat16* x[2];   // inputs, NHWC [n, h, w, 128]
-  const __nv_bfloat16* wt[2];  // [3][3][128][128] HWIO
-  void* y;                     // NHWC [n, h, w, 128]
-  float* part;                 // [tiles][256] stats partials (stats only)
+  const __nv_bfloat16* taps;  // [2 nin][9][128 co][64 ci], chunks swizzled
+  void* y;                    // NHWC [n, h, w, 128]
+  float* part;                // stats partials (stats only)
   int n, h, w, nin, out_bf16, stats;
 };
 
+// Partials a CTA writes: one for each sample its range of tiles meets. A
+// range of at most `len` tiles meets at most ceil((len - 1) / per_b) + 1
+// samples of per_b tiles each.
+__host__ __device__ __forceinline__ int range_slots(int total, int nblk,
+                                                    int per_b) {
+  const int len = total / nblk + (total % nblk > 0);
+  return (len - 1 + per_b - 1) / per_b + 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One plane: box {64 ci, 130 pixels, 4 rows, 1 sample} of the 4-D map at
+// (ci0, pixel, row, sample); out-of-bounds elements land as zeros.
+__device__ __forceinline__ void tma_plane(uint32_t dst, const CUtensorMap* map,
+                                          int ci0, int c, int r, int b,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(ci0), "r"(c), "r"(r), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One half row of y: box {64 co, 128 pixels, 1 row, 1 sample} of the 4-D
+// map of y at (co0, pixel, row, sample) from `src`; the hardware clips what
+// lies outside y.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int co0, int c, int r, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(co0), "r"(c), "r"(r), "r"(b), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle starting at
+// shared address `addr`: rows of 64 bf16 128 bytes apart, 8 rows a
+// 1024-byte swizzle atom (stride 1024); the leading offset is unused.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+}
+
+#define ACC8(i)                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64] += A B, m64n128k16, bf16 in, f32 accumulate, A (64 pixels x 16 ci)
+// and B (16 ci x 128 co) both K-major in shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "l"(a), "l"(b));
+}
+
+#undef ACC8
+
+// Tile g: sample b, first output row r0, first pixel c0.
 struct Tile {
   int b, r0, c0;
 };
 
-__device__ __forceinline__ Tile tile_of(long t, const Args& a) {
-  const int tw = (a.w + TW - 1) / TW;
-  const int th = (a.h + TH - 1) / TH;
-  Tile s;
-  s.c0 = (int)(t % tw) * TW;
-  s.r0 = (int)((t / tw) % th) * TH;
-  s.b = (int)(t / ((long)tw * th));
-  return s;
+__device__ __forceinline__ Tile tile_of(int g, int rowpairs, int strips) {
+  const int bs = g / rowpairs;
+  Tile t;
+  t.r0 = 2 * (g - bs * rowpairs);
+  t.b = bs / strips;
+  t.c0 = (bs - t.b * strips) * TP;
+  return t;
 }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Start copying tap t ([128 ci][128 co]) of w into buf, rows padded to WS.
-__device__ __forceinline__ void issue_tap(__nv_bfloat16* buf,
-                                          const __nv_bfloat16* w, int t) {
-  const __nv_bfloat16* src = w + (size_t)t * L * L;
-  for (int i = threadIdx.x; i < L * (L / 8); i += THREADS) {
-    const int row = i / (L / 8), v = i % (L / 8);
-    cp_async16(buf + row * WS + v * 8, src + row * L + v * 8);
-  }
-  cp_async_commit();
-}
-
-// Stage the (TH+2) x (TW+2) window of image b around the tile, zero outside.
-__device__ void load_window(__nv_bfloat16* xs, const __nv_bfloat16* x,
-                            const Tile& t, int h, int w) {
-  constexpr int CHUNKS = L / 8;
-  for (int i = threadIdx.x; i < SROWS * SCOLS * CHUNKS; i += THREADS) {
-    const int v = i % CHUNKS;
-    const int p = i / CHUNKS;
-    const int sc = p % SCOLS, sr = p / SCOLS;
-    const int gr = t.r0 - 1 + sr, gc = t.c0 - 1 + sc;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr >= 0 && gr < h && gc >= 0 && gc < w)
-      val = __ldg(reinterpret_cast<const uint4*>(
-          x + ((((size_t)t.b * h + gr) * w + gc) * L + v * 8)));
-    *reinterpret_cast<uint4*>(xs + (sr * SCOLS + sc) * XS + v * 8) = val;
-  }
-}
-
-__device__ __forceinline__ void store8(void* y, size_t off, const float* v,
-                                       int out_bf16) {
-  if (out_bf16) {
-    __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j]);
-    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(y) + off) =
-        *reinterpret_cast<const uint4*>(o);
-  } else {
-    float4* p = reinterpret_cast<float4*>(static_cast<float*>(y) + off);
-    p[0] = make_float4(v[0], v[1], v[2], v[3]);
-    p[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __global__ void __launch_bounds__(THREADS, 1)
-conv_bd(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* taps = reinterpret_cast<__nv_bfloat16*>(smem + X_BYTES);
-  float* red = reinterpret_cast<float*>(smem + X_BYTES + 2 * TAP_BYTES);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = warp % TH, half = warp / TH;
+conv_bd(const __grid_constant__ CUtensorMap map0,
+        const __grid_constant__ CUtensorMap map1,
+        const __grid_constant__ CUtensorMap map_y, const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t planes = base, ring = base + OFF_RING;
+  float* red = reinterpret_cast<float*>(smem + OFF_RED);
+  // barriers: full planes 0-1, empty planes 2-3, full taps 4.., empty taps
+  const uint32_t bars = base + OFF_BAR;
+  const uint32_t full_plane = bars, empty_plane = bars + 16;
+  const uint32_t full_tap = bars + 32, empty_tap = bars + 32 + 8 * RING;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full_plane + 8 * i, 1);
+      mbar_init(empty_plane + 8 * i, CONSUMERS / 32);
+    }
+    for (int i = 0; i < RING; ++i) {
+      mbar_init(full_tap + 8 * i, 1);
+      mbar_init(empty_tap + 8 * i, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const long tiles = (long)a.n * ((a.h + TH - 1) / TH) * ((a.w + TW - 1) / TW);
-  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile t = tile_of(tile, a);
-    FragC acc[2][4];
+  const int h = a.h, w = a.w, nplanes = 2 * a.nin;
+  const int strips = (w + TP - 1) / TP, rowpairs = (h + 1) / 2;
+  const int per_b = strips * rowpairs, total = a.n * per_b;
+  const int q = total / gridDim.x, rem = total % gridDim.x;
+  const int bid = blockIdx.x;
+  const int g_begin = bid * q + min(bid, rem);
+  const int g_end = g_begin + q + (bid < rem);
+
+  if (tid >= CONSUMERS) {
+    // producers: thread 0 of warp 8 streams the taps, thread 0 of warp 9
+    // the planes, each in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int kplanes = (g_end - g_begin) * nplanes;
+    if (tid == CONSUMERS) {
+      const unsigned char* taps =
+          reinterpret_cast<const unsigned char*>(a.taps);
+      int c = 0;
+      for (int k = 0; k < kplanes; ++k) {
+        const int p = k % nplanes;
+        for (int t = 0; t < 9; ++t, ++c) {
+          const int slot = c % RING;
+          mbar_wait(empty_tap + 8 * slot, ((c / RING) & 1) ^ 1);
+          mbar_expect_tx(full_tap + 8 * slot, CHUNK);
+          bulk_copy(ring + slot * CHUNK, taps + (size_t)(p * 9 + t) * CHUNK,
+                    CHUNK, full_tap + 8 * slot);
+        }
+      }
+    } else if (tid == CONSUMERS + 32) {
+      // plane k goes to buffer k % 2 as soon as plane k - 2 is released
+      for (int k = 0; k < kplanes; ++k) {
+        const int p = k % nplanes;
+        const Tile t = tile_of(g_begin + k / nplanes, rowpairs, strips);
+        const int pb = k & 1;
+        mbar_wait(empty_plane + 8 * pb, ((k >> 1) & 1) ^ 1);
+        mbar_expect_tx(full_plane + 8 * pb, PLANE);
+        tma_plane(planes + pb * PLANE, p < 2 ? &map0 : &map1, 64 * (p & 1),
+                  t.c0 - 1, t.r0 - 1, t.b, full_plane + 8 * pb);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg computes output row r0 + wg of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const bool leader = (tid & 127) == 0;  // issues the group's y stores
+  const int nslot = range_slots(total, gridDim.x, per_b);
+  const int b_first = g_begin / per_b;
+  int b_cur = b_first;
+  // by i = 2 j + e1: co 8 j + 2 (lane % 4) + e1
+  float s1[32], s2[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s1[i] = s2[i] = 0.f;
+  float acc[2][64];
+  int c = 0, kp = 0;  // chunks and planes consumed so far
+  // the plane buffer that holds the last tile's bf16 y until its stores
+  // have read it (-1: none)
+  int staged = -1;
+
+  for (int g = g_begin;;) {
+    const bool done = g >= g_end;
+    if (a.stats && (done || g / per_b != b_cur)) {
+      // this CTA's partial of sample b_cur: the 8 lanes that share a co set
+      // meet by shuffles, the 8 warps in shared memory
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+#pragma unroll
+        for (int d = 4; d < 32; d <<= 1) {
+          s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], d);
+          s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], d);
+        }
+      }
+      if (lane < 4) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int co = 8 * (i >> 1) + 2 * lane + (i & 1);
+          red[warp * NSTAT + co] = s1[i];
+          red[warp * NSTAT + L + co] = s2[i];
+        }
+      }
+      bar_sync(1, CONSUMERS);
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < CONSUMERS / 32; ++k) v += red[k * NSTAT + tid];
+      a.part[((size_t)bid * nslot + (b_cur - b_first)) * NSTAT + tid] = v;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s1[i] = s2[i] = 0.f;
+      b_cur = g / per_b;
+      bar_sync(1, CONSUMERS);  // red is rewritten by the next flush
+    }
+    if (done) break;
+    const Tile tl = tile_of(g, rowpairs, strips);
+
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) wmma::fill_fragment(acc[m][nn], 0.f);
-
-    for (int in = 0; in < a.nin; ++in) {
-      __syncthreads();   // the window and tap buffer 0 are free again
-      issue_tap(taps, a.wt[in], 0);
-      load_window(xs, a.x[in], t, a.h, a.w);
-      for (int tap = 0; tap < 9; ++tap) {
-        cp_async_wait_all();
-        __syncthreads();   // tap `tap` landed; tap - 1's buffer is free
-        if (tap + 1 < 9) issue_tap(taps + ((tap + 1) & 1) * TAP_ELEMS,
-                                   a.wt[in], tap + 1);
-        const int dr = tap / 3, dc = tap % 3;
-        // output (row, pixel p) reads window (row + dr, p + dc)
-        const __nv_bfloat16* xr = xs + ((row + dr) * SCOLS + dc) * XS;
-        const __nv_bfloat16* wt = taps + (tap & 1) * TAP_ELEMS + half * HALF;
-#pragma unroll 2
-        for (int k = 0; k < L; k += 16) {
-          FragA fa[2];
-          FragB fb[4];
+      for (int k = 0; k < 64; ++k) acc[m][k] = 0.f;
+    for (int p = 0; p < nplanes; ++p, ++kp) {
+      const int pb = kp & 1;
+      mbar_wait(full_plane + 8 * pb, (kp >> 1) & 1);
+      const uint32_t arow = planes + pb * PLANE + wg * PW * PIX;
+#pragma unroll
+      for (int t = 0; t < 9; ++t, ++c) {
+        const int slot = c % RING;
+        mbar_wait(full_tap + 8 * slot, (c / RING) & 1);
+        const int dr = t / 3, dc = t % 3;
+        const uint64_t da = desc(arow + (dr * PW + dc) * PIX);
+        const uint64_t db = desc(ring + slot * CHUNK);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
           for (int m = 0; m < 2; ++m)
-            wmma::load_matrix_sync(fa[m], xr + m * 16 * XS + k, XS);
-#pragma unroll
-          for (int nn = 0; nn < 4; ++nn)
-            wmma::load_matrix_sync(fb[nn], wt + k * WS + nn * 16, WS);
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int nn = 0; nn < 4; ++nn)
-              wmma::mma_sync(acc[m][nn], fa[m], fb[nn], acc[m][nn]);
+            wgmma_n128(acc[m], da + ((m * 64 * PIX + ks * 32) >> 4),
+                       db + ((ks * 32) >> 4));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the previous chunk's group is done: free its slot (and plane)
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (p | t) {
+          if (lane == 0) {
+            mbar_arrive(empty_tap + 8 * ((c - 1) % RING));
+            if (t == 0) mbar_arrive(empty_plane + 8 * ((kp - 1) & 1));
+          }
+        } else if (staged >= 0) {
+          // the last tile's y has left its plane buffer: release it
+          if (leader) {
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            mbar_arrive(empty_plane + 8 * staged, 4);
+          }
+          staged = -1;
         }
       }
     }
-    __syncthreads();     // the window is free: it becomes epilogue scratch
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int k = 0; k < 64; ++k) asm volatile("" : "+f"(acc[m][k])::"memory");
+    if (lane == 0) mbar_arrive(empty_tap + 8 * ((c - 1) % RING));
 
-    float* scratch = reinterpret_cast<float*>(xs) + warp * 256;
-    const int r = t.r0 + row;
-    const int i = lane >> 1, j0 = (lane & 1) * 8;
-    // stats: lane (sc, sp) sums lane column sc over fragment rows 2q + sp
-    const int sc = lane & 15, sp = lane >> 4;
-    float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+    // epilogue: acc[m][4 j + e] holds pixel 64 m + 16 (warp % 4) +
+    // lane / 4 + 8 (e >> 1), co 8 j + 2 (lane % 4) + (e & 1)
+    const int r = tl.r0 + wg;
+    const bool row_ok = r < h;
+    const int pb = (kp - 1) & 1;  // the tile's last plane
+    if (a.out_bf16) {
+      // y goes through the last plane's buffer: group wg's row as two
+      // [128 pixels][64 co] halves of 16 KB in the 128-byte swizzle, then
+      // out by two TMA stores while the next tile's products run
+      bar_sync(1, CONSUMERS);  // both groups are done reading the plane
+      const uint32_t stage = planes + pb * PLANE + wg * 2 * TP * PIX;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < 2; ++m) {
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        wmma::store_matrix_sync(scratch, acc[m][nn], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int col = t.c0 + m * 16 + i;
-        if (r < a.h && col < a.w)
-          store8(a.y,
-                 (((size_t)t.b * a.h + r) * a.w + col) * L + half * HALF +
-                     nn * 16 + j0,
-                 scratch + i * 16 + j0, a.out_bf16);
-        if (a.stats) {
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int px = 64 * m + 16 * (warp & 3) + (lane >> 2) + 8 * e2;
+          const bool ok = row_ok && tl.c0 + px < w;
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int ii = 2 * q + sp;
-            if (r < a.h && t.c0 + m * 16 + ii < a.w) {
-              const float v = scratch[ii * 16 + sc];
-              s1[nn] += v;
-              s2[nn] += v * v;
+          for (int j = 0; j < 16; ++j) {
+            const float v0 = acc[m][4 * j + 2 * e2];
+            const float v1 = acc[m][4 * j + 2 * e2 + 1];
+            const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+            const uint32_t dst = stage + (j >> 3) * TP * PIX + px * PIX +
+                                 (((j & 7) ^ (px & 7)) << 4) + 4 * (lane & 3);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                         "r"(*reinterpret_cast<const uint32_t*>(&o))
+                         : "memory");
+            if (a.stats && ok) {
+              s1[2 * j] += v0;
+              s2[2 * j] += v0 * v0;
+              s1[2 * j + 1] += v1;
+              s2[2 * j + 1] += v1 * v1;
             }
           }
         }
-        __syncwarp();
       }
-    }
-    if (a.stats) {
+      // the stores read through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(2 + wg, 128);
+      if (leader && row_ok) {
+        tma_store(&map_y, stage, 0, tl.c0, r, tl.b);
+        tma_store(&map_y, stage + TP * PIX, 64, tl.c0, r, tl.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      staged = pb;
+    } else {
+      if (lane == 0) mbar_arrive(empty_plane + 8 * pb);
+      const size_t row_off = ((size_t)tl.b * h + (row_ok ? r : 0)) * w;
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        s1[nn] += __shfl_xor_sync(0xffffffffu, s1[nn], 16);
-        s2[nn] += __shfl_xor_sync(0xffffffffu, s2[nn], 16);
-        if (sp == 0) {
-          red[row * NSTAT + half * HALF + nn * 16 + sc] = s1[nn];
-          red[row * NSTAT + L + half * HALF + nn * 16 + sc] = s2[nn];
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int px =
+              tl.c0 + 64 * m + 16 * (warp & 3) + (lane >> 2) + 8 * e2;
+          if (!row_ok || px >= w) continue;
+          float* yp = static_cast<float*>(a.y) + (row_off + px) * L +
+                      2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float v0 = acc[m][4 * j + 2 * e2];
+            const float v1 = acc[m][4 * j + 2 * e2 + 1];
+            *reinterpret_cast<float2*>(yp + 8 * j) = make_float2(v0, v1);
+            if (a.stats) {
+              s1[2 * j] += v0;
+              s2[2 * j] += v0 * v0;
+              s1[2 * j + 1] += v1;
+              s2[2 * j + 1] += v1 * v1;
+            }
+          }
         }
       }
-      __syncthreads();
-      if (threadIdx.x < NSTAT) {
-        float v = 0.f;
-#pragma unroll
-        for (int k = 0; k < TH; ++k) v += red[k * NSTAT + threadIdx.x];
-        a.part[tile * NSTAT + threadIdx.x] = v;
-      }
     }
-    // the next tile's first __syncthreads guards the scratch and `red`
+    ++g;
   }
+  // y must be written before the CTA ends
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Per-sample sums of the tile partials, in tile order (deterministic).
-// grid (n, NSTAT / 32), 256 threads: 8 phases of 32 values each.
-__global__ void __launch_bounds__(256)
-stats_reduce(const float* __restrict__ part, float* s1, float* s2, int tps) {
-  __shared__ float ph_sum[8][32];
-  const int lane = threadIdx.x % 32, ph = threadIdx.x / 32;
-  const int v = blockIdx.y * 32 + lane;
-  const float* p = part + (size_t)blockIdx.x * tps * NSTAT + v;
+// Per-sample sums of conv_bd's partials: sample b's are those of the CTAs
+// whose tile ranges meet it, summed in CTA order (deterministic).
+// grid n, NSTAT threads, one value each.
+__global__ void __launch_bounds__(NSTAT)
+stats_reduce_ranges(const float* __restrict__ part, float* s1, float* s2,
+                    int per_b, int total, int nblk) {
+  const int b = blockIdx.x, v = threadIdx.x;
+  const int q = total / nblk, rem = total % nblk;
+  const int nslot = range_slots(total, nblk, per_b);
+  auto cta_of = [&](int g) {
+    return g < rem * (q + 1) ? g / (q + 1) : rem + (g - rem * (q + 1)) / q;
+  };
   float acc = 0.f;
-  for (int t = ph; t < tps; t += 8) acc += p[(size_t)t * NSTAT];
-  ph_sum[ph][lane] = acc;
-  __syncthreads();
-  if (ph == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s += ph_sum[k][lane];
-    float* out = v < L ? s1 : s2;
-    out[(size_t)blockIdx.x * L + (v % L)] = s;
+  const int last = cta_of(b * per_b + per_b - 1);
+  for (int c = cta_of(b * per_b); c <= last; ++c) {
+    const int start = c * q + min(c, rem);
+    acc += part[((size_t)c * nslot + b - start / per_b) * NSTAT + v];
   }
+  (v < L ? s1 : s2)[(size_t)b * L + v % L] = acc;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so nothing links
+// libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
+
+// The 4-D map of x or y [n, h, w, 128] bf16 whose box is {box0 lanes,
+// box1 pixels, box2 rows, 1 sample}: a plane of x, or a half row of y.
+int make_map(CUtensorMap* map, const void* x, int n, int h, int w, int box0,
+             int box1, int box2) {
+  const cuuint64_t dims[4] = {(cuuint64_t)L, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)L * 2, (cuuint64_t)w * L * 2,
+                                 (cuuint64_t)h * w * L * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1,
+                             (cuuint32_t)box2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode_tiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the CUDA error code (0 on success). Pointers
-// must be 16-byte aligned and the tensors contiguous; the wrapper checks.
-// With stats, `part` holds n * ceil(h/8) * ceil(w/32) * 256 floats of
-// scratch and s1, s2 receive [n][128] each.
-extern "C" int onet_conv3x3_bd(const void* xa, const void* xb, const void* wa,
-                               const void* wb, void* y, float* part, float* s1,
-                               float* s2, int n, int h, int w, int nin,
-                               int out_bf16, int stats, void* stream) {
+// Set up conv_bd on the current device: its shared-memory attribute, the
+// tensor-map encoder, and the launch geometry at this shape. Returns the
+// grid (CTAs) a launch uses and writes to *nparts the number of [256] f32
+// stats partials it needs: the wrapper allocates them and calls this once
+// per (device, shape, nin). Negative: -(CUDA error).
+extern "C" int onet_conv3x3_bd_setup(int n, int h, int w, int nin,
+                                     int* nparts) {
+  if (nin < 1 || nin > 2) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_bd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  if (!encode_tiled) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if ((err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                       cudaEnableDefault, &found)) !=
+        cudaSuccess)
+      return -(int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return -(int)cudaErrorSymbolNotFound;
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  }
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return -(int)err;
+  // tiles numbered with 32-bit ints
+  const long tiles = (long)n * ((w + TP - 1) / TP) * ((h + 1) / 2);
+  if (tiles > INT32_MAX) return -(int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  const int per_b = ((w + TP - 1) / TP) * ((h + 1) / 2);
+  *nparts = grid == 0 ? 0 : grid * range_slots((int)tiles, grid, per_b);
+  return grid;
+}
+
+// Launch on `stream` with the grid `nblk` from onet_conv3x3_bd_setup;
+// returns the CUDA error code (0 on success). x pointers must be 16-byte
+// aligned and the tensors contiguous; the wrapper checks. `taps` is
+// ops/conv_bd.py::taps_bd of the nin weights. With stats, `part` holds
+// that call's nparts * 256 floats of scratch and s1, s2 receive [n][128]
+// each.
+extern "C" int onet_conv3x3_bd(const void* xa, const void* xb,
+                               const void* taps, void* y, float* part,
+                               float* s1, float* s2, int n, int h, int w,
+                               int nin, int out_bf16, int stats, int nblk,
+                               void* stream) {
   if (nin < 1 || nin > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (nblk == 0) {  // no pixels: the sums are zero
+    if (stats && n > 0) {
+      if ((err = cudaMemsetAsync(s1, 0, n * L * 4, st)) != cudaSuccess)
+        return (int)err;
+      return (int)cudaMemsetAsync(s2, 0, n * L * 4, st);
+    }
+    return (int)cudaSuccess;
+  }
+  if (!encode_tiled) return (int)cudaErrorInitializationError;
+  // y's map is used only for bf16 y; f32 y is stored from the registers
+  CUtensorMap m0, m1, my;
+  int bad = make_map(&m0, xa, n, h, w, 64, PW, PR);
+  if (!bad) bad = make_map(&m1, nin > 1 ? xb : xa, n, h, w, 64, PW, PR);
+  if (!bad) bad = make_map(&my, out_bf16 ? y : xa, n, h, w, 64, TP, 1);
+  if (bad) return bad;
   Args a;
-  a.x[0] = static_cast<const __nv_bfloat16*>(xa);
-  a.x[1] = static_cast<const __nv_bfloat16*>(xb);
-  a.wt[0] = static_cast<const __nv_bfloat16*>(wa);
-  a.wt[1] = static_cast<const __nv_bfloat16*>(wb);
+  a.taps = static_cast<const __nv_bfloat16*>(taps);
   a.y = y;
   a.part = part;
   a.n = n;
@@ -299,23 +595,10 @@ extern "C" int onet_conv3x3_bd(const void* xa, const void* xb, const void* wa,
   a.nin = nin;
   a.out_bf16 = out_bf16;
   a.stats = stats;
-
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_bd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  const int tps = ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  const long tiles = (long)n * tps;
-  if (tiles == 0) return (int)cudaSuccess;
-  const long grid = tiles < sms ? tiles : sms;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  conv_bd<<<(unsigned)grid, THREADS, SMEM, st>>>(a);
+  conv_bd<<<nblk, THREADS, SMEM, st>>>(m0, m1, my, a);
   if ((err = cudaGetLastError()) != cudaSuccess || !stats) return (int)err;
-  stats_reduce<<<dim3((unsigned)n, NSTAT / 32), 256, 0, st>>>(part, s1, s2,
-                                                             tps);
+  const int per_b = ((w + TP - 1) / TP) * ((h + 1) / 2);
+  stats_reduce_ranges<<<n, NSTAT, 0, st>>>(part, s1, s2, per_b, n * per_b,
+                                           nblk);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,12 @@ out. On a CPU tensor the wrappers run the plain PyTorch version below (the
 same bf16-rounded operands, nine f32 tap products); on a CUDA tensor they
 launch the hand-written kernel of ``csrc/conv_bd.cu`` (which replaces
 ``_bd_fwd_kernel`` and ``_bd_fwd2_kernel``, ``pallas_conv_bd.py:96,119``)
-or raise. Each wrapper counts its kernel launches in ``.launches``.
+or raise. Each wrapper counts its kernel launches in ``.launches``. The
+kernel (``wgmma`` fed by TMA and bulk copies, the design in the source's
+note) streams the taps in the layout of ``taps_bd``, which the wrapper
+builds once per call; its set-up (``onet_conv3x3_bd_setup``: shared-memory
+attribute, grid, partial count) runs once per card, shape and input count
+(``_setup``).
 
 ``conv_stats_library`` is the counterpart of ``xla_conv_stats``: one cuDNN
 convolution (``F.conv2d``) and a separate f32 stats pass over its stored
@@ -28,6 +33,7 @@ path of the port calls it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +41,7 @@ import torch.nn.functional as F
 from onet_tpu_torch.ops import _build
 
 L = 128                 # lanes of the stacked layout
-TH, TW = 8, 32          # the kernel's output tile (rows, pixels)
+KC = 64                 # ci of one plane of the kernel's K loop
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +92,77 @@ def conv_stats_library(x, w):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's tap layout
+# ---------------------------------------------------------------------------
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """[..., co, KC] -> the same with row co's 16-byte chunks (8 bf16)
+    permuted: chunk v lands at v ^ (co % 8), the tensor cores' 128-byte
+    swizzle of a row at a 1024-byte aligned base + 128 co. Its own
+    inverse."""
+    co = t.shape[-2]
+    rows = torch.arange(co, device=t.device)[:, None]
+    idx = torch.arange(KC // 8, device=t.device)[None, :] ^ (rows % 8)
+    chunks = t.reshape(*t.shape[:-1], KC // 8, 8)
+    return chunks[..., rows, idx, :].reshape(t.shape)
+
+
+def _check_taps(shape) -> None:
+    kh, kw, ci, co = shape
+    if (kh, kw) != (3, 3) or ci % KC or co % 8:
+        raise ValueError(f"expected [3, 3, 64k, 8m] weights, got "
+                         f"{tuple(shape)}")
+
+
+def _layout(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, ci, co] (any dtype) -> [ci / 64, 9, co, 64], swizzled."""
+    _check_taps(w.shape)
+    ci, co = w.shape[2:]
+    return _swizzle(w.reshape(9, ci // KC, KC, co).permute(1, 0, 3, 2))
+
+
+@functools.cache
+def _gather_index(ci: int, co: int, device) -> torch.Tensor:
+    """Flat HWIO offsets of ``taps_bd``'s elements, in its order."""
+    ar = torch.arange(9 * ci * co, device=device).reshape(3, 3, ci, co)
+    return _layout(ar).reshape(-1)
+
+
+def taps_bd(ws) -> torch.Tensor:
+    """The weights [3, 3, ci, co] HWIO (ci a multiple of 64, co of 8) as
+    the kernel streams them: bf16 [planes, 9, co, 64], plane = (input,
+    64-ci half) in the K loop's order, each [co, 64 ci] chunk K-major with
+    its rows swizzled (``_swizzle``), so a plain bulk copy lands a chunk as
+    ``wgmma`` reads it. One gather per weight."""
+    w0 = ws[0]
+    _check_taps(w0.shape)
+    _, _, ci, co = w0.shape
+    out = torch.empty((len(ws) * ci // KC, 9, co, KC), dtype=torch.bfloat16,
+                      device=w0.device)
+    idx = _gather_index(ci, co, w0.device)
+    for k, w in enumerate(ws):
+        if w.shape != w0.shape:
+            raise ValueError(f"weights differ: {tuple(w.shape)} vs "
+                             f"{tuple(w0.shape)}")
+        torch.index_select(w.to(torch.bfloat16).reshape(-1), 0, idx,
+                           out=out[k * ci // KC:(k + 1) * ci // KC].view(-1))
+    return out
+
+
+def hwio_from_taps_bd(taps: torch.Tensor, nin: int) -> list:
+    """Inverse of ``taps_bd``: the ``nin`` [3, 3, ci, co] HWIO weights."""
+    planes, _, co, _ = taps.shape
+    ci = planes // nin * KC
+    idx = _gather_index(ci, co, taps.device)
+    out = []
+    for t in taps.reshape(nin, -1):
+        w = torch.empty(9 * ci * co, dtype=taps.dtype, device=taps.device)
+        w[idx] = t
+        out.append(w.reshape(3, 3, ci, co))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the kernel on the card
 # ---------------------------------------------------------------------------
 
@@ -105,39 +182,64 @@ def _check(xs, ws):
                              f"{w.device}")
 
 
+@functools.cache
+def _lib():
+    """csrc/conv_bd.cu's two C functions, their signatures set once."""
+    lib = _build.load("conv_bd")
+    setup = lib.onet_conv3x3_bd_setup
+    setup.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    setup.restype = ctypes.c_int
+    fn = lib.onet_conv3x3_bd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return setup, fn
+
+
+@functools.cache
+def _setup(device_index: int, n: int, h: int, w: int, nin: int) -> tuple:
+    """The kernel's set-up on one card, once per shape and input count: its
+    shared-memory attribute, the tensor-map encoder, and (grid, stats
+    partials) of a launch (raises on a CUDA error, which is then not
+    cached)."""
+    nparts = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        grid = _lib()[0](n, h, w, nin, ctypes.byref(nparts))
+    if grid < 0:
+        raise RuntimeError(f"conv_bd kernel setup failed: CUDA error {-grid}")
+    return grid, nparts.value
+
+
 def _launch(xs, ws, stats, out_dtype):
     """Run csrc/conv_bd.cu on CUDA tensors; returns y [N, H, W, 128], and
     with ``stats`` also (s1, s2) [N, 128] f32."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv_bd kernel stores bf16 or f32, not {out_dtype}")
     xs = [x.to(torch.bfloat16).contiguous() for x in xs]
-    ws = [w.to(torch.bfloat16).contiguous() for w in ws]
+    taps = taps_bd(ws)
     x0 = xs[0]
     dev = x0.device
     n, h, wd, _ = x0.shape
     y = torch.empty((n, h, wd, L), dtype=out_dtype, device=dev)
-    for t in (*xs, *ws, y):
+    for t in (*xs, taps, y):
         if t.data_ptr() % 16:
             raise ValueError("conv_bd kernel needs 16-byte aligned tensors")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    grid, nparts = _setup(index, n, h, wd, len(xs))
     if stats:
-        tiles = n * -(-h // TH) * -(-wd // TW)
-        part = torch.empty((tiles, 2 * L), dtype=torch.float32, device=dev)
+        part = torch.empty((nparts, 2 * L), dtype=torch.float32, device=dev)
         s1 = torch.empty((n, L), dtype=torch.float32, device=dev)
         s2 = torch.empty((n, L), dtype=torch.float32, device=dev)
         ptrs = (part.data_ptr(), s1.data_ptr(), s2.data_ptr())
     else:
         ptrs = (0, 0, 0)
-    fn = _build.load("conv_bd").onet_conv3x3_bd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x1 = xs[1] if len(xs) > 1 else x0
-    w1 = ws[1] if len(ws) > 1 else ws[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x0.data_ptr(), x1.data_ptr(), ws[0].data_ptr(),
-                 w1.data_ptr(), y.data_ptr(), *ptrs, n, h, wd, len(xs),
-                 int(out_dtype == torch.bfloat16), int(bool(stats)), stream)
+        err = _lib()[1](x0.data_ptr(), x1.data_ptr(), taps.data_ptr(),
+                        y.data_ptr(), *ptrs, n, h, wd, len(xs),
+                        int(out_dtype == torch.bfloat16), int(bool(stats)),
+                        grid, stream)
     if err:
         raise RuntimeError(f"conv_bd kernel launch failed: CUDA error {err}")
     return (y, s1, s2) if stats else y
