@@ -38,15 +38,16 @@ Phases, each fatal on failure:
      one make_eval_step call on labels thresholded from the frames.
   5. the other kernels (JSD head forward and backward, min-max,
      native-layout conv with stats, one and two inputs): each against its
-     plain version at small shapes (f32, bf16, ragged); then the main path,
+     plain version at small shapes (f32, bf16, ragged; bd also at a ragged
+     (3, 130, 260) twice, stats bit-identical); then the main path,
      launches counted: fused_jsd_loss forward and backward on the four
      [8,512,512,64] bf16 halves of one full-width training forward,
      paired_input on the train batch's frames, the bd probe's two
      N=8 512x512 sites through the probe module; those outputs against the
      plain versions, compute_loss and autograd of the stacked head; timings
-     beside the plain version, the bound and cuDNN's conv alone (timed by
-     the probe on the same inputs) or the eager formulation; the probe's
-     own A/B.
+     beside the plain version, the bound and cuDNN's conv alone (bd: both
+     with the L2 flushed, by the profiler's device time and warm, as in
+     phase 2) or the eager formulation; the probe's own warm A/B.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -153,9 +154,11 @@ def timed(fn, prefix: str = "") -> dict:
             prefix + "warm_ms": cuda_ms(fn)}
 
 
+# matched in order against each mangled name, which holds its source's
+# file name: "conv_bd" comes after the other kernels of conv_bd.cu
 KERNEL_NAMES = ("conv_wp_bf16_1in", "conv_wp_bf16_2in", "conv_wp_f32",
                 "stats_reduce_ranges", "stats_reduce", "dw_bf16", "dw_f32",
-                "dw_reduce")
+                "dw_reduce", "conv_bd")
 
 
 def ptxas_report(_build, source: str, no_spill: str = "") -> None:
@@ -811,6 +814,24 @@ def small_phase5_checks(HD, BD, dev):
         for nin in (1, 2):
             bd_err(BD, xs[:nin], ws[:nin], f"conv3x3_bd nin={nin} "
                    f"(4, 60, 100) {dt}")
+    # bf16 with stats at (3, 130, 260): 195 tiles of 2 rows x 128 pixels
+    # to a sample, 585 over an H100's 132 CTAs in ranges of 4-5, two of
+    # which cross samples; the W edge cuts a tile. Twice, the stats
+    # bit-identical
+    xs = [torch.randn((3, 130, 260, 128), generator=g).to(dev, torch.bfloat16)
+          for _ in range(2)]
+    ws = [(0.05 * torch.randn((3, 3, 128, 128), generator=g))
+          .to(dev, torch.bfloat16) for _ in range(2)]
+    for nin in (1, 2):
+        raw = BD.conv3x3_bd_raw if nin == 1 else BD.conv3x3_bd2in_raw
+        bd_err(BD, xs[:nin], ws[:nin], f"conv3x3_bd nin={nin} "
+               f"(3, 130, 260) bfloat16")
+        a, b = (raw(*xs[:nin], *ws[:nin], stats=True) for _ in range(2))
+        same = torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        log(f"[check] conv3x3_bd nin={nin} (3, 130, 260) stats twice: "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("conv_bd stats differ between two calls")
     torch.cuda.empty_cache()
 
 
@@ -987,28 +1008,36 @@ def head_minmax_bd(dev) -> list:
         xs, ws = bd_in[:nin], (bd_in[2:3] if nin == 1 else bd_in[3:])
         raw = BD.conv3x3_bd_raw if nin == 1 else BD.conv3x3_bd2in_raw
         plain = BD.conv3x3_bd_plain if nin == 1 else BD.conv3x3_bd2in_plain
-        ms = cuda_ms(lambda: raw(*xs, *ws, stats=True))
-        plain_ms = cuda_ms(lambda: plain(*xs, *ws, stats=True), reps=3,
-                           warmup=1)
+        # cold L2, profiler device time and warm, as the conv_wp rows; cuDNN's
+        # conv alone the same way (inputs laid out outside the timing)
+        t = timed(lambda: raw(*xs, *ws, stats=True))
+        t["plain_ms"] = cuda_ms(lambda: plain(*xs, *ws, stats=True), reps=3,
+                                warmup=1)
+        torch.cuda.empty_cache()
+        x_lib = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)
+        w_lib = torch.cat(ws, dim=2).permute(3, 2, 0, 1).contiguous()
+        t.update(timed(lambda: torch.nn.functional.conv2d(x_lib, w_lib,
+                                                          padding=1),
+                       "library_"))
+        del x_lib
         torch.cuda.empty_cache()
         flops = 2 * n_bd * H * W * 128 * 128 * 9 * nin
         nbytes = (nin + 1) * n_bd * H * W * 128 * 2 + nin * 9 * 128 * 128 * 2 \
             + 2 * n_bd * 128 * 4
         t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
         times[key] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            **t, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_call="F.conv2d alone (cuDNN), no stats")
+            l2="cold", library_call="F.conv2d alone (cuDNN), no stats")
+        log_conv_time(f"{key} N={n_bd}", times[key])
     del bd_in, feats, flat, ts, grads, loc, glob
     torch.cuda.empty_cache()
-    # the probe draws the same inputs from SEED and times cuDNN's conv alone
+    # the probe's warm A/B on the same inputs (drawn from SEED): the kernel
+    # with its stats consumed against cuDNN's conv + a stats pass, and
+    # cuDNN's conv alone
     probe_out = probe.run(dev, seed=SEED)
     log("[probe] " + json.dumps(probe_out))
     torch.cuda.empty_cache()
-    for key, site in (("conv3x3_bd+stats", "single_128"),
-                      ("conv3x3_bd2in+stats", "two_input_256")):
-        times[key]["library_ms"] = probe_out["sites"][site][
-            "library_conv_only_ms"]
     for key, t in times.items():
         extra = (f"library {t['library_ms']:.3f} ms" if t["library_ms"]
                  else f"no library call; eager {t['eager_ms']:.3f} ms "
@@ -1049,6 +1078,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     ptxas_report(_build, "conv_wp", no_spill="conv_wp_bf16")
     ptxas_report(_build, "conv_wp_dw", no_spill="dw_bf16")
+    ptxas_report(_build, "conv_bd", no_spill="conv_bd")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -284,12 +284,18 @@ def test_minmax_kernel_matches_plain(dev, shape, dtype):
     assert torch.equal(pair, torch.cat([rn, rc]))
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 12, 20), (3, 9, 37)])
+# W of 1, 127, 129, 260 and H of 1, 3, 130 against the 2-row x 128-pixel
+# tile; (40, 3, 129) has more tiles than the H100 has SMs, so CTA ranges
+# cross samples
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 12, 20), (3, 9, 37),
+                                   (3, 1, 127), (2, 3, 129), (2, 130, 1),
+                                   (3, 130, 260), (40, 3, 129)])
 @pytest.mark.parametrize("nin", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
-    """H and W not multiples of the 8x32 tile; f32 inputs are cast to
-    bf16 by the wrapper as by the plain version."""
+    """Dense (not block-diagonal) weights; f32 inputs are cast to bf16 by
+    the wrapper as by the plain version; both output dtypes; the stats
+    bit-identical over two calls."""
     g = torch.Generator().manual_seed(7 * nin + shape[2])
     xs = [torch.randn(shape + (128,), generator=g).to(dev, dtype)
           for _ in range(nin)]
@@ -299,7 +305,7 @@ def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
     plain = TB.conv3x3_bd_plain if nin == 1 else TB.conv3x3_bd2in_plain
     n = raw.launches
     y32, s1, s2 = raw(*xs, *ws, stats=True, out_dtype=torch.float32)
-    y16 = raw(*xs, *ws, out_dtype=torch.bfloat16)
+    y16, t1, t2 = raw(*xs, *ws, stats=True, out_dtype=torch.bfloat16)
     yd = raw(*xs, *ws)
     torch.cuda.synchronize()
     assert raw.launches == n + 3
@@ -311,3 +317,4 @@ def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
     assert _rel(yd, ry) <= (1e-4 if dtype == torch.float32 else 1e-2)
     _assert_sums_close(s1, rs1)
     _assert_sums_close(s2, rs2)
+    assert torch.equal(s1, t1) and torch.equal(s2, t2)

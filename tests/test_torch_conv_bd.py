@@ -150,3 +150,29 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         TB.conv3x3_bd2in_raw(torch.zeros(1, 4, 4, 128),
                              torch.zeros(1, 4, 8, 128), w, w)
+
+
+@pytest.mark.parametrize("nin,ci,co", [(1, 128, 128), (2, 128, 128),
+                                       (1, 64, 8), (2, 192, 24)])
+def test_taps_bd_round_trip(nin, ci, co):
+    """The kernel's tap layout: each [co, 64 ci] chunk K-major, its 16-byte
+    chunks swizzled by co % 8, in (input, ci half, tap) order; it reads
+    back to the HWIO weights bit for bit (bf16)."""
+    rng = np.random.default_rng(50 + nin + ci + co)
+    ws = [torch.tensor(rng.standard_normal((3, 3, ci, co)).astype(np.float32))
+          for _ in range(nin)]
+    taps = TB.taps_bd(ws)
+    assert taps.dtype == torch.bfloat16 and taps.is_contiguous()
+    assert taps.shape == (nin * ci // 64, 9, co, 64)
+    for w, back in zip(ws, TB.hwio_from_taps_bd(taps, nin)):
+        np.testing.assert_array_equal(back.float().numpy(),
+                                      w.to(torch.bfloat16).float().numpy())
+    wb = [w.to(torch.bfloat16) for w in ws]
+    for plane, tap, c, k in ((0, 4, 5, 17), (taps.shape[0] - 1, 8, co - 1, 63),
+                             (nin * ci // 64 // 2, 0, 3, 40)):
+        inp, half = divmod(plane, ci // 64)
+        pos = ((k // 8) ^ (c % 8)) * 8 + k % 8
+        assert taps[plane, tap, c, pos] == wb[inp][tap // 3, tap % 3,
+                                                   64 * half + k, c]
+    with pytest.raises(ValueError):
+        TB.taps_bd([torch.zeros(3, 3, 100, 128)])
