@@ -2,8 +2,9 @@
 // with the optional BatchNorm-statistics epilogue, for sm_90a.
 //
 // Replaces the Pallas kernels of onet_tpu/ops/pallas_conv_bd.py:
-//   _bd_fwd_kernel  (:96, via conv3x3_bd_raw)    y = conv(x, w)
-//   _bd_fwd2_kernel (:119, via conv3x3_bd2in_raw) y = conv(xa, wa) + conv(xb, wb)
+//   _bd_fwd_kernel  (:96, via conv3x3_bd_raw)     y = conv(x, w)
+//   _bd_fwd2_kernel (:119, via conv3x3_bd2in_raw) y = conv(xa, wa) +
+//                                                     conv(xb, wb)
 // x [n, h, w, 128] and w [3, 3, 128, 128] (HWIO, any dense weight: the
 // block-diagonal zeros of bd2 are multiplied like any other value) are bf16;
 // the accumulator is f32; y is stored as bf16 or f32. With stats, per-sample
@@ -18,8 +19,12 @@
 // Design (one kernel, conv_bd, for both forms):
 //  * work: output tiles of 2 rows x 128 pixels x all 128 co, numbered in
 //    strip order g = ((b * strips + strip) * rowpairs + rowpair); persistent
-//    CTAs, one per SM, each take an equal contiguous range of g, so a tile's
-//    window rows are still in L2 from the tile above it;
+//    CTAs, one per SM, in clusters of 2; every CTA takes the same number of
+//    tiles, a contiguous range of g, so a tile's window rows are still in L2
+//    from the tile above it. The last CTAs' ranges run past the end: those
+//    tiles are computed on stale planes and dropped (the card's time is the
+//    longest range either way), so both CTAs of a cluster stream the same
+//    taps;
 //  * window planes: the K loop runs plane by plane, a plane being 64 ci of
 //    one input (one input is 2 planes, two inputs 4): the 4 rows x 130
 //    pixels (halo included) x 64 ci of the tile's window, 66,560 B, one
@@ -30,12 +35,14 @@
 //    first, loads while the current one multiplies;
 //  * tap ring: the nine 128x128 taps are 295 KB an input, more than a
 //    block's 227 KB, so they stream in chunks of one tap x 64 ci x 128 co
-//    (16 KB) in the K loop's order through a 5-stage ring, one bulk copy a
-//    chunk. The wrapper lays the taps out once per call as [plane][tap][co]
-//    [64 ci] with the 16-byte chunks of each co row already swizzled
-//    (ops/conv_bd.py::taps_bd), so a plain bulk copy lands them as the
-//    tensor cores read them. Each tile reads 295 KB of taps an input from
-//    L2 (the weights stay L2-resident);
+//    (16 KB) in the K loop's order through a 5-stage ring. The wrapper lays
+//    the taps out once per call as [plane][tap][co][64 ci] with the 16-byte
+//    chunks of each co row already swizzled (ops/conv_bd.py::taps_bd), so a
+//    plain bulk copy lands them as the tensor cores read them. Each tile
+//    needs 295 KB of taps an input from L2, 2.4 GB a one-input call at
+//    N=8 512^2: each CTA of a cluster copies half of every chunk and
+//    multicasts it to both, which halves those L2 reads (it paid in the
+//    two-input form, where tap and plane reads from L2 neared 4 TB/s);
 //  * products: wgmma m64n128k16, D[pixel][co], A = the window plane (pixels
 //    K-major: a tap's pixel shift dc is a descriptor dc * 128 bytes on, its
 //    row shift dr one (dr * 130 * 128) bytes on, no copy; the tensor cores
@@ -45,20 +52,31 @@
 //    for both groups (the row is in the descriptor), so ptxas does not
 //    serialize the wgmma. m64n128 with both operands in shared memory reads
 //    96 B a clock of tensor-core time, 75% of shared memory's 128 B;
-//  * synchronization: mbarriers only. A producer warp (one thread) issues
-//    the TMA and bulk copies against "full" barriers (transaction bytes);
-//    each consumer warp arrives on "empty" barriers once the wgmma that
-//    read a chunk or a plane have completed (wgmma.wait_group 1 keeps one
-//    group of 8 in flight while the next is issued). No __syncthreads in
-//    the main loop;
-//  * epilogue, from the registers: bf16x2 (or float2) stores of y straight
-//    to global memory, and the statistics summed in registers across the
-//    tiles of one sample (32 co x 2 a thread). When the range moves to
-//    another sample, and at its end, the CTA meets them in shared memory
-//    and writes one [256] partial (s1 lanes, then s2 lanes) for that
-//    sample; stats_reduce_ranges sums each sample's partials in CTA order:
-//    the same inputs give the same bits, run to run (no atomics). Meanwhile
-//    the producer is already loading the next tile's planes and taps.
+//  * registers: the consumers hold 128 accumulators and 64 statistics a
+//    thread. ptxas sizes a kernel's registers for its block rounded to whole
+//    warpgroups (a 288-thread block got 168 and spilled 2.2 KB; a larger
+//    per-kernel cap does not launch), so a producer warpgroup gives its
+//    registers to the consumers (setmaxnreg 40 / 232);
+//  * synchronization: mbarriers only. Thread 0 of producer warp 8 issues
+//    the tap copies, thread 0 of warp 9 the plane loads, against "full"
+//    barriers (transaction bytes); each consumer warp arrives on "empty"
+//    barriers once the wgmma that read a chunk or a plane have completed
+//    (wgmma.wait_group 1 keeps one group of 8 in flight while the next is
+//    issued): a tap slot is refilled once both CTAs' 8 warps released it.
+//    The arrivals on the other CTA's barrier use the default (CTA-scope)
+//    release: with .release.cluster the kernel ran twice as long. No
+//    __syncthreads in the main loop;
+//  * epilogue: bf16 y goes from the registers into the buffer of the tile's
+//    last plane (both groups are done reading it), one [128 pixels][64 co]
+//    swizzled half row at a time, and leaves by TMA stores while the next
+//    tile's products run; the buffer is released once the stores have read
+//    it. f32 y (no main path's) is stored straight from the registers. The
+//    statistics are summed in registers across the tiles of one sample (32
+//    co x 2 a thread); when the range moves to another sample, and at its
+//    end, the CTA meets them in shared memory and writes one [256] partial
+//    (s1 lanes, then s2 lanes) for that sample; stats_reduce_ranges sums
+//    each sample's partials in CTA order: the same inputs give the same
+//    bits, run to run (no atomics).
 // Shared memory: 2 planes 133,120 B + ring 81,920 B + 8,192 B for the
 // statistics + barriers, 223,360 B (+1 KB to align to the swizzle atom).
 
@@ -80,7 +98,8 @@ constexpr int CHUNK = L * PIX;         // one tap x 64 ci x 128 co: 16,384
 constexpr int RING = 5;                // tap chunks in flight
 constexpr int NSTAT = 2 * L;           // s1 lanes, s2 lanes
 constexpr int CONSUMERS = 256;         // two warpgroups
-constexpr int THREADS = CONSUMERS + 128;  // + the producer warp
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int CLUSTER = 2;             // CTAs that share each tap chunk
 constexpr int OFF_RING = 2 * PLANE;
 constexpr int OFF_RED = OFF_RING + RING * CHUNK;
 constexpr int OFF_BAR = OFF_RED + (CONSUMERS / 32) * NSTAT * 4;
@@ -97,12 +116,10 @@ struct Args {
 };
 
 // Partials a CTA writes: one for each sample its range of tiles meets. A
-// range of at most `len` tiles meets at most ceil((len - 1) / per_b) + 1
+// range of `count` tiles meets at most ceil((count - 1) / per_b) + 1
 // samples of per_b tiles each.
-__host__ __device__ __forceinline__ int range_slots(int total, int nblk,
-                                                    int per_b) {
-  const int len = total / nblk + (total % nblk > 0);
-  return (len - 1 + per_b - 1) / per_b + 1;
+__host__ __device__ __forceinline__ int range_slots(int count, int per_b) {
+  return (count - 1 + per_b - 1) / per_b + 1;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -151,13 +168,38 @@ __device__ __forceinline__ void tma_plane(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
+// Copy `bytes` from global memory to shared address `dst` of every CTA of
+// the cluster, each signalling its own barrier at `bar`.
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"((uint16_t)((1 << CLUSTER) - 1))
       : "memory");
+}
+
+// Arrive on the barrier at `bar` of CTA r of the cluster (lane r of a warp
+// arrives at CTA r).
+__device__ __forceinline__ void mbar_arrive_cta(uint32_t bar, int r) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(r)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 // One half row of y: box {64 co, 128 pixels, 1 row, 1 sample} of the 4-D
@@ -221,7 +263,7 @@ __device__ __forceinline__ Tile tile_of(int g, int rowpairs, int strips) {
   return t;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 conv_bd(const __grid_constant__ CUtensorMap map0,
         const __grid_constant__ CUtensorMap map1,
         const __grid_constant__ CUtensorMap map_y, const Args a) {
@@ -244,28 +286,32 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
     }
     for (int i = 0; i < RING; ++i) {
       mbar_init(full_tap + 8 * i, 1);
-      mbar_init(empty_tap + 8 * i, CONSUMERS / 32);
+      mbar_init(empty_tap + 8 * i, CLUSTER * CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();  // both CTAs' barriers exist before either uses them
 
   const int h = a.h, w = a.w, nplanes = 2 * a.nin;
   const int strips = (w + TP - 1) / TP, rowpairs = (h + 1) / 2;
   const int per_b = strips * rowpairs, total = a.n * per_b;
-  const int q = total / gridDim.x, rem = total % gridDim.x;
+  // every CTA walks `count` tiles, so the two of a cluster stream the same
+  // taps; tiles past `total` (the last CTAs' tail) are computed and dropped
+  const int count = (total + gridDim.x - 1) / gridDim.x;
   const int bid = blockIdx.x;
-  const int g_begin = bid * q + min(bid, rem);
-  const int g_end = g_begin + q + (bid < rem);
+  const int g_begin = bid * count;
 
   if (tid >= CONSUMERS) {
     // producers: thread 0 of warp 8 streams the taps, thread 0 of warp 9
     // the planes, each in the consumers' order
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    const int kplanes = (g_end - g_begin) * nplanes;
+    const int kplanes = count * nplanes;
     if (tid == CONSUMERS) {
+      // this CTA's half of each chunk (64 of the 128 co) goes to both CTAs
+      // of the cluster, once both have released the slot
+      const uint32_t half = cluster_rank() * (CHUNK / CLUSTER);
       const unsigned char* taps =
-          reinterpret_cast<const unsigned char*>(a.taps);
+          reinterpret_cast<const unsigned char*>(a.taps) + half;
       int c = 0;
       for (int k = 0; k < kplanes; ++k) {
         const int p = k % nplanes;
@@ -273,10 +319,15 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
           const int slot = c % RING;
           mbar_wait(empty_tap + 8 * slot, ((c / RING) & 1) ^ 1);
           mbar_expect_tx(full_tap + 8 * slot, CHUNK);
-          bulk_copy(ring + slot * CHUNK, taps + (size_t)(p * 9 + t) * CHUNK,
-                    CHUNK, full_tap + 8 * slot);
+          bulk_multicast(ring + slot * CHUNK + half,
+                         taps + (size_t)(p * 9 + t) * CHUNK, CHUNK / CLUSTER,
+                         full_tap + 8 * slot);
         }
       }
+      // the last releases of both CTAs, so no arrival reaches this CTA
+      // after it has ended
+      for (int i = 0; i < RING; ++i, ++c)
+        mbar_wait(empty_tap + 8 * (c % RING), ((c / RING) & 1) ^ 1);
     } else if (tid == CONSUMERS + 32) {
       // plane k goes to buffer k % 2 as soon as plane k - 2 is released
       for (int k = 0; k < kplanes; ++k) {
@@ -284,6 +335,10 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
         const Tile t = tile_of(g_begin + k / nplanes, rowpairs, strips);
         const int pb = k & 1;
         mbar_wait(empty_plane + 8 * pb, ((k >> 1) & 1) ^ 1);
+        if (g_begin + k / nplanes >= total) {  // a dropped tile: no load
+          mbar_arrive(full_plane + 8 * pb);
+          continue;
+        }
         mbar_expect_tx(full_plane + 8 * pb, PLANE);
         tma_plane(planes + pb * PLANE, p < 2 ? &map0 : &map1, 64 * (p & 1),
                   t.c0 - 1, t.r0 - 1, t.b, full_plane + 8 * pb);
@@ -296,9 +351,9 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
   const bool leader = (tid & 127) == 0;  // issues the group's y stores
-  const int nslot = range_slots(total, gridDim.x, per_b);
+  const int nslot = range_slots(count, per_b);
   const int b_first = g_begin / per_b;
-  int b_cur = b_first;
+  int b_cur = g_begin < total ? b_first : -1;  // sample being summed
   // by i = 2 j + e1: co 8 j + 2 (lane % 4) + e1
   float s1[32], s2[32];
 #pragma unroll
@@ -309,9 +364,10 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
   // have read it (-1: none)
   int staged = -1;
 
-  for (int g = g_begin;;) {
-    const bool done = g >= g_end;
-    if (a.stats && (done || g / per_b != b_cur)) {
+  for (int i = 0;; ++i) {
+    const int g = g_begin + i;
+    const bool done = i == count, real = g < total;
+    if (a.stats && b_cur >= 0 && (done || !real || g / per_b != b_cur)) {
       // this CTA's partial of sample b_cur: the 8 lanes that share a co set
       // meet by shuffles, the 8 warps in shared memory
 #pragma unroll
@@ -337,7 +393,7 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
       a.part[((size_t)bid * nslot + (b_cur - b_first)) * NSTAT + tid] = v;
 #pragma unroll
       for (int i = 0; i < 32; ++i) s1[i] = s2[i] = 0.f;
-      b_cur = g / per_b;
+      b_cur = done || !real ? -1 : g / per_b;
       bar_sync(1, CONSUMERS);  // red is rewritten by the next flush
     }
     if (done) break;
@@ -369,10 +425,10 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
         // the previous chunk's group is done: free its slot (and plane)
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (p | t) {
-          if (lane == 0) {
-            mbar_arrive(empty_tap + 8 * ((c - 1) % RING));
-            if (t == 0) mbar_arrive(empty_plane + 8 * ((kp - 1) & 1));
-          }
+          if (lane < CLUSTER)
+            mbar_arrive_cta(empty_tap + 8 * ((c - 1) % RING), lane);
+          if (lane == 0 && t == 0)
+            mbar_arrive(empty_plane + 8 * ((kp - 1) & 1));
         } else if (staged >= 0) {
           // the last tile's y has left its plane buffer: release it
           if (leader) {
@@ -388,12 +444,12 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int k = 0; k < 64; ++k) asm volatile("" : "+f"(acc[m][k])::"memory");
-    if (lane == 0) mbar_arrive(empty_tap + 8 * ((c - 1) % RING));
+    if (lane < CLUSTER) mbar_arrive_cta(empty_tap + 8 * ((c - 1) % RING), lane);
 
     // epilogue: acc[m][4 j + e] holds pixel 64 m + 16 (warp % 4) +
     // lane / 4 + 8 (e >> 1), co 8 j + 2 (lane % 4) + (e & 1)
     const int r = tl.r0 + wg;
-    const bool row_ok = r < h;
+    const bool row_ok = real && r < h;
     const int pb = (kp - 1) & 1;  // the tile's last plane
     if (a.out_bf16) {
       // y goes through the last plane's buffer: group wg's row as two
@@ -462,30 +518,23 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
         }
       }
     }
-    ++g;
   }
   // y must be written before the CTA ends
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Per-sample sums of conv_bd's partials: sample b's are those of the CTAs
-// whose tile ranges meet it, summed in CTA order (deterministic).
-// grid n, NSTAT threads, one value each.
+// whose tile ranges (`count` tiles each) meet it, summed in CTA order
+// (deterministic). grid n, NSTAT threads, one value each.
 __global__ void __launch_bounds__(NSTAT)
 stats_reduce_ranges(const float* __restrict__ part, float* s1, float* s2,
-                    int per_b, int total, int nblk) {
+                    int per_b, int count) {
   const int b = blockIdx.x, v = threadIdx.x;
-  const int q = total / nblk, rem = total % nblk;
-  const int nslot = range_slots(total, nblk, per_b);
-  auto cta_of = [&](int g) {
-    return g < rem * (q + 1) ? g / (q + 1) : rem + (g - rem * (q + 1)) / q;
-  };
+  const int nslot = range_slots(count, per_b);
   float acc = 0.f;
-  const int last = cta_of(b * per_b + per_b - 1);
-  for (int c = cta_of(b * per_b); c <= last; ++c) {
-    const int start = c * q + min(c, rem);
-    acc += part[((size_t)c * nslot + b - start / per_b) * NSTAT + v];
-  }
+  const int last = (b * per_b + per_b - 1) / count;
+  for (int c = b * per_b / count; c <= last; ++c)
+    acc += part[((size_t)c * nslot + b - c * count / per_b) * NSTAT + v];
   (v < L ? s1 : s2)[(size_t)b * L + v % L] = acc;
 }
 
@@ -542,17 +591,28 @@ extern "C" int onet_conv3x3_bd_setup(int n, int h, int w, int nin,
       return -(int)cudaErrorSymbolNotFound;
     encode_tiled = reinterpret_cast<EncodeTiled>(fn);
   }
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, clusters = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return -(int)err;
+  // as many clusters as the card holds at once (one CTA an SM)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sms / CLUSTER * CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)conv_bd,
+                                            &cfg)) != cudaSuccess)
+    return -(int)err;
+  if (clusters < 1) return -(int)cudaErrorInvalidConfiguration;
   // tiles numbered with 32-bit ints
   const long tiles = (long)n * ((w + TP - 1) / TP) * ((h + 1) / 2);
   if (tiles > INT32_MAX) return -(int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sms ? tiles : sms);
+  if (tiles == 0) return *nparts = 0;
+  const long need = (tiles + CLUSTER - 1) / CLUSTER;
+  const int grid = CLUSTER * (int)(need < clusters ? need : clusters);
   const int per_b = ((w + TP - 1) / TP) * ((h + 1) / 2);
-  *nparts = grid == 0 ? 0 : grid * range_slots((int)tiles, grid, per_b);
+  *nparts = grid * range_slots((int)((tiles + grid - 1) / grid), per_b);
   return grid;
 }
 
@@ -598,7 +658,7 @@ extern "C" int onet_conv3x3_bd(const void* xa, const void* xb,
   conv_bd<<<nblk, THREADS, SMEM, st>>>(m0, m1, my, a);
   if ((err = cudaGetLastError()) != cudaSuccess || !stats) return (int)err;
   const int per_b = ((w + TP - 1) / TP) * ((h + 1) / 2);
-  stats_reduce_ranges<<<n, NSTAT, 0, st>>>(part, s1, s2, per_b, n * per_b,
-                                           nblk);
+  stats_reduce_ranges<<<n, NSTAT, 0, st>>>(part, s1, s2, per_b,
+                                           (n * per_b + nblk - 1) / nblk);
   return (int)cudaGetLastError();
 }
