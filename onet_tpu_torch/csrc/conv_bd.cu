@@ -42,7 +42,11 @@
 //    needs 295 KB of taps an input from L2, 2.4 GB a one-input call at
 //    N=8 512^2: each CTA of a cluster copies half of every chunk and
 //    multicasts it to both, which halves those L2 reads (it paid in the
-//    two-input form, where tap and plane reads from L2 neared 4 TB/s);
+//    two-input form, where tap and plane reads from L2 neared 4 TB/s).
+//    Each cluster takes a plane's taps from its own first tap on (cluster
+//    index mod 9): started together, the 66 clusters would otherwise ask
+//    the same L2 lines for the same chunk at once (5% in the two-input
+//    form);
 //  * products: wgmma m64n128k16, D[pixel][co], A = the window plane (pixels
 //    K-major: a tap's pixel shift dc is a descriptor dc * 128 bytes on, its
 //    row shift dr one (dr * 130 * 128) bytes on, no copy; the tensor cores
@@ -300,6 +304,9 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
   const int count = (total + gridDim.x - 1) / gridDim.x;
   const int bid = blockIdx.x;
   const int g_begin = bid * count;
+  // each cluster starts a plane's taps at its own one, so the clusters do
+  // not all ask L2 for the same chunk at once
+  const int rot = (bid / CLUSTER) % 9;
 
   if (tid >= CONSUMERS) {
     // producers: thread 0 of warp 8 streams the taps, thread 0 of warp 9
@@ -320,8 +327,8 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
           mbar_wait(empty_tap + 8 * slot, ((c / RING) & 1) ^ 1);
           mbar_expect_tx(full_tap + 8 * slot, CHUNK);
           bulk_multicast(ring + slot * CHUNK + half,
-                         taps + (size_t)(p * 9 + t) * CHUNK, CHUNK / CLUSTER,
-                         full_tap + 8 * slot);
+                         taps + (size_t)(p * 9 + (t + rot) % 9) * CHUNK,
+                         CHUNK / CLUSTER, full_tap + 8 * slot);
         }
       }
       // the last releases of both CTAs, so no arrival reaches this CTA
@@ -411,7 +418,7 @@ conv_bd(const __grid_constant__ CUtensorMap map0,
       for (int t = 0; t < 9; ++t, ++c) {
         const int slot = c % RING;
         mbar_wait(full_tap + 8 * slot, (c / RING) & 1);
-        const int dr = t / 3, dc = t % 3;
+        const int tt = (t + rot) % 9, dr = tt / 3, dc = tt - 3 * dr;
         const uint64_t da = desc(arow + (dr * PW + dc) * PIX);
         const uint64_t db = desc(ring + slot * CHUNK);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -26,6 +26,7 @@ def test_port_imports_neither_jax_nor_onet_tpu():
     assert "onet_tpu_torch.ops.head" in mods
     assert "onet_tpu_torch.ops.conv_bd" in mods
     assert "onet_tpu_torch.runs.bd_epilogue_probe" in mods
+    assert "onet_tpu_torch.runs.bd_probe" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
