@@ -110,7 +110,6 @@ constexpr int OFF_BAR = OFF_RED + (CONSUMERS / 32) * NSTAT * 4;
 constexpr int SMEM = OFF_BAR + 128 + 1024;  // + alignment slack
 static_assert(SMEM <= 232448, "227 KB of shared memory a block");
 static_assert(PLANE % 1024 == 0 && CHUNK % 1024 == 0, "swizzle atoms");
-static_assert(RING <= 9, "the next plane is issued after tap RING - 1");
 
 struct Args {
   const __nv_bfloat16* taps;  // [2 nin][9][128 co][64 ci], chunks swizzled

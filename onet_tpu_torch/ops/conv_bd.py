@@ -95,18 +95,6 @@ def conv_stats_library(x, w):
 # the kernel's tap layout
 # ---------------------------------------------------------------------------
 
-def _swizzle(t: torch.Tensor) -> torch.Tensor:
-    """[..., co, KC] -> the same with row co's 16-byte chunks (8 bf16)
-    permuted: chunk v lands at v ^ (co % 8), the tensor cores' 128-byte
-    swizzle of a row at a 1024-byte aligned base + 128 co. Its own
-    inverse."""
-    co = t.shape[-2]
-    rows = torch.arange(co, device=t.device)[:, None]
-    idx = torch.arange(KC // 8, device=t.device)[None, :] ^ (rows % 8)
-    chunks = t.reshape(*t.shape[:-1], KC // 8, 8)
-    return chunks[..., rows, idx, :].reshape(t.shape)
-
-
 def _check_taps(shape) -> None:
     kh, kw, ci, co = shape
     if (kh, kw) != (3, 3) or ci % KC or co % 8:
@@ -114,51 +102,38 @@ def _check_taps(shape) -> None:
                          f"{tuple(shape)}")
 
 
-def _layout(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, ci, co] (any dtype) -> [ci / 64, 9, co, 64], swizzled."""
-    _check_taps(w.shape)
-    ci, co = w.shape[2:]
-    return _swizzle(w.reshape(9, ci // KC, KC, co).permute(1, 0, 3, 2))
-
-
 @functools.cache
 def _gather_index(ci: int, co: int, device) -> torch.Tensor:
-    """Flat HWIO offsets of ``taps_bd``'s elements, in its order."""
-    ar = torch.arange(9 * ci * co, device=device).reshape(3, 3, ci, co)
-    return _layout(ar).reshape(-1)
+    """The flat HWIO offset of each element of ``taps_bd``'s layout
+    [ci / 64, 9, co, 64]: position v of row co holds ci
+    8 ((v / 8) ^ (co % 8)) + v % 8 of its 64-ci half, the tensor cores'
+    128-byte swizzle of a row at a 1024-byte aligned base + 128 co."""
+    half, tap, o, v = torch.meshgrid(
+        *(torch.arange(n, device=device) for n in (ci // KC, 9, co, KC)),
+        indexing="ij")
+    k = KC * half + ((v // 8) ^ (o % 8)) * 8 + v % 8
+    return ((tap * ci + k) * co + o).reshape(-1)
 
 
 def taps_bd(ws) -> torch.Tensor:
     """The weights [3, 3, ci, co] HWIO (ci a multiple of 64, co of 8) as
     the kernel streams them: bf16 [planes, 9, co, 64], plane = (input,
     64-ci half) in the K loop's order, each [co, 64 ci] chunk K-major with
-    its rows swizzled (``_swizzle``), so a plain bulk copy lands a chunk as
-    ``wgmma`` reads it. One gather per weight."""
+    its rows swizzled (``_gather_index``), so a plain bulk copy lands a
+    chunk as ``wgmma`` reads it. One gather per weight."""
     w0 = ws[0]
-    _check_taps(w0.shape)
+    for w in ws:
+        _check_taps(w.shape)
+        if w.shape != w0.shape:
+            raise ValueError(f"weights differ: {tuple(w.shape)} vs "
+                             f"{tuple(w0.shape)}")
     _, _, ci, co = w0.shape
     out = torch.empty((len(ws) * ci // KC, 9, co, KC), dtype=torch.bfloat16,
                       device=w0.device)
     idx = _gather_index(ci, co, w0.device)
     for k, w in enumerate(ws):
-        if w.shape != w0.shape:
-            raise ValueError(f"weights differ: {tuple(w.shape)} vs "
-                             f"{tuple(w0.shape)}")
         torch.index_select(w.to(torch.bfloat16).reshape(-1), 0, idx,
                            out=out[k * ci // KC:(k + 1) * ci // KC].view(-1))
-    return out
-
-
-def hwio_from_taps_bd(taps: torch.Tensor, nin: int) -> list:
-    """Inverse of ``taps_bd``: the ``nin`` [3, 3, ci, co] HWIO weights."""
-    planes, _, co, _ = taps.shape
-    ci = planes // nin * KC
-    idx = _gather_index(ci, co, taps.device)
-    out = []
-    for t in taps.reshape(nin, -1):
-        w = torch.empty(9 * ci * co, dtype=taps.dtype, device=taps.device)
-        w[idx] = t
-        out.append(w.reshape(3, 3, ci, co))
     return out
 
 

@@ -152,6 +152,18 @@ def test_wrappers_reject_bad_shapes():
                              torch.zeros(1, 4, 8, 128), w, w)
 
 
+def _hwio_from_taps(taps, nin):
+    """Inverse of ``taps_bd`` by reshapes: unswizzle each row's 16-byte
+    chunks (chunk u of row co sits at u ^ (co % 8)), then [input, ci half,
+    tap, co, 64 ci] back to [3, 3, ci, co] per input."""
+    planes, _, co, kc = taps.shape
+    rows = torch.arange(co)[:, None]
+    chunks = taps.reshape(planes, 9, co, kc // 8, 8)
+    t = chunks[:, :, rows, torch.arange(kc // 8)[None, :] ^ (rows % 8)]
+    t = t.reshape(nin, planes // nin, 9, co, kc).permute(0, 2, 1, 4, 3)
+    return list(t.reshape(nin, 3, 3, planes // nin * kc, co))
+
+
 @pytest.mark.parametrize("nin,ci,co", [(1, 128, 128), (2, 128, 128),
                                        (1, 64, 8), (2, 192, 24)])
 def test_taps_bd_round_trip(nin, ci, co):
@@ -164,7 +176,7 @@ def test_taps_bd_round_trip(nin, ci, co):
     taps = TB.taps_bd(ws)
     assert taps.dtype == torch.bfloat16 and taps.is_contiguous()
     assert taps.shape == (nin * ci // 64, 9, co, 64)
-    for w, back in zip(ws, TB.hwio_from_taps_bd(taps, nin)):
+    for w, back in zip(ws, _hwio_from_taps(taps, nin)):
         np.testing.assert_array_equal(back.float().numpy(),
                                       w.to(torch.bfloat16).float().numpy())
     wb = [w.to(torch.bfloat16) for w in ws]
