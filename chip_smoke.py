@@ -39,7 +39,7 @@ Phases, each fatal on failure:
   5. the other kernels (JSD head forward and backward, min-max,
      native-layout conv with stats, one and two inputs): each against its
      plain version at small shapes (f32, bf16, ragged; bd also at a ragged
-     (3, 130, 260) twice, stats bit-identical); then the main path,
+     (3, 131, 260) twice, stats bit-identical); then the main path,
      launches counted: fused_jsd_loss forward and backward on the four
      [8,512,512,64] bf16 halves of one full-width training forward,
      paired_input on the train batch's frames, the bd probe's two
@@ -814,21 +814,21 @@ def small_phase5_checks(HD, BD, dev):
         for nin in (1, 2):
             bd_err(BD, xs[:nin], ws[:nin], f"conv3x3_bd nin={nin} "
                    f"(4, 60, 100) {dt}")
-    # bf16 with stats at (3, 130, 260): 195 tiles of 2 rows x 128 pixels
-    # to a sample, 585 over an H100's 132 CTAs in ranges of 4-5, two of
-    # which cross samples; the W edge cuts a tile. Twice, the stats
-    # bit-identical
-    xs = [torch.randn((3, 130, 260, 128), generator=g).to(dev, torch.bfloat16)
+    # bf16 with stats at (3, 131, 260): 198 tiles of 2 rows x 128 pixels
+    # to a sample, 594 over an H100's 132 CTAs in ranges of 5 (the last
+    # run past the end), two of which cross samples; the W edge cuts a
+    # tile, the H edge a row pair. Twice, the stats bit-identical
+    xs = [torch.randn((3, 131, 260, 128), generator=g).to(dev, torch.bfloat16)
           for _ in range(2)]
     ws = [(0.05 * torch.randn((3, 3, 128, 128), generator=g))
           .to(dev, torch.bfloat16) for _ in range(2)]
     for nin in (1, 2):
         raw = BD.conv3x3_bd_raw if nin == 1 else BD.conv3x3_bd2in_raw
         bd_err(BD, xs[:nin], ws[:nin], f"conv3x3_bd nin={nin} "
-               f"(3, 130, 260) bfloat16")
+               f"(3, 131, 260) bfloat16")
         a, b = (raw(*xs[:nin], *ws[:nin], stats=True) for _ in range(2))
         same = torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-        log(f"[check] conv3x3_bd nin={nin} (3, 130, 260) stats twice: "
+        log(f"[check] conv3x3_bd nin={nin} (3, 131, 260) stats twice: "
             f"{'bit-identical' if same else 'DIFFER'}")
         if not same:
             raise AssertionError("conv_bd stats differ between two calls")

@@ -285,11 +285,11 @@ def test_minmax_kernel_matches_plain(dev, shape, dtype):
 
 
 # W of 1, 127, 129, 260 and H of 1, 3, 130 against the 2-row x 128-pixel
-# tile; (40, 3, 129) has more tiles than the H100 has SMs, so CTA ranges
-# cross samples
+# tile; (70, 3, 129) has 280 tiles, 4 to a sample, so on an H100 (132
+# CTAs, 3 tiles each, the last past the end) CTA ranges cross samples
 @pytest.mark.parametrize("shape", [(2, 16, 16), (1, 12, 20), (3, 9, 37),
                                    (3, 1, 127), (2, 3, 129), (2, 130, 1),
-                                   (3, 130, 260), (40, 3, 129)])
+                                   (3, 130, 260), (70, 3, 129)])
 @pytest.mark.parametrize("nin", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
