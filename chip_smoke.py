@@ -48,15 +48,25 @@ Phases, each fatal on failure:
      beside the plain version, the bound and cuDNN's conv alone (bd: both
      with the L2 flushed, by the profiler's device time and warm, as in
      phase 2) or the eager formulation; the probe's own warm A/B.
+  6. the simclutter workload (``simclutter_workload``): both clutter
+     families generated on the card, three epochs of train() at full
+     width (base 64, 224^2, batch 10, bf16, pair-packed) with the
+     pair-packed kernels' launches counted, a resume; every kernel launch
+     of one step at the driver's full batch (N=20 packed) and at its
+     ragged batch (N=10) against its plain version on the step's own
+     operands, and the step's loss against the stacked step's; epoch and
+     step times and the driver's host share.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -67,7 +77,8 @@ import numpy as np
 import torch
 
 from onet_tpu_torch.runs.bd_epilogue_probe import cuda_ms
-from onet_tpu_torch.runs.dw_probe import cold_ms, device_ms
+from onet_tpu_torch.runs.dw_probe import (SPIN_CYCLES, cold_ms, device_ms,
+                                          queued_ms)
 
 SEED = 1981
 H = W = 512
@@ -122,36 +133,64 @@ def bound(nin: int, n: int, dtype, *, stats=False, dw=False) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def breakdown(fn, label: str, top: int = 10):
+def breakdown(fn, label: str, top: int = 10, kernels: int | None = None,
+              tries: int = 3):
     """Device time by kernel over one call, from torch.profiler; the wall
-    time includes the profiler's own cost."""
+    time includes the profiler's own cost. Short spin kernels before and
+    after the call (left out of the sums) keep its records off both ends
+    of the trace. With ``kernels``, the launches one call makes, a profile
+    that missed some is taken again, up to ``tries`` times; the log line
+    says if it stays short."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key]
+        count = sum(e.count for e in kern)
+        if kernels is None or count == kernels:
+            break
     busy = sum(e.self_device_time_total for e in kern) / 1e3
+    short = ("" if kernels is None or count == kernels else
+             f" (INCOMPLETE: {count} of the call's {kernels} launches "
+             f"recorded in {tries} tries)")
     log(f"[profile] {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"in {sum(e.count for e in kern)} kernels, idle share "
-        f"{1 - busy / wall:.3f}")
+        f"in {count} kernels, idle share {1 - busy / wall:.3f}{short}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<3d} {e.key[:100]}")
 
 
-def timed(fn, prefix: str = "") -> dict:
-    """{ms, device_ms, warm_ms} of one call: CUDA events with the L2 cache
-    flushed before each call (as a train step or a served batch finds it),
-    the profiler's device time (no host work counts), and CUDA events on a
-    warm cache (the timing of earlier runs, kept for history)."""
-    return {prefix + "ms": cold_ms(fn), prefix + "device_ms": device_ms(fn),
+def timed(fn, prefix: str = "", kernels: int | None = None) -> dict:
+    """{ms, device_ms, queued_ms, warm_ms} of one call: CUDA events with
+    the L2 cache flushed before each call (as a train step or a served
+    batch finds it); the profiler's device time, the sum of the call's
+    kernels (no host work counts; ``kernels``, where given, the launches
+    one call makes, each of which the profiler must have recorded, else
+    None); CUDA events with the L2 flushed and the card held behind a spin
+    kernel, from the call's first kernel's start to its last one's end (no
+    host work, the card's gaps between kernels included); and CUDA events
+    on a warm cache (the timing of earlier runs, kept for history)."""
+    return {prefix + "ms": cold_ms(fn),
+            prefix + "device_ms": device_ms(fn, kernels=kernels),
+            prefix + "queued_ms": queued_ms(fn),
             prefix + "warm_ms": cuda_ms(fn)}
+
+
+def fmt_ms(v, digits: int = 3) -> str:
+    """A time for the log; None where the profiler missed a record."""
+    return "not recorded" if v is None else f"{v:.{digits}f}"
 
 
 # matched in order against each mangled name, which holds its source's
@@ -358,7 +397,9 @@ def time_train_kernels(TC, dev) -> tuple:
         raise AssertionError("the dx conv disagrees with its plain version")
     errs["conv3x3_wp+dx"] = dx_err
     del got, ref
-    t = timed(lambda: TC._conv_w([xs[1]], [w_dx]))
+    # two launches a call: the copy that makes the flipped taps contiguous
+    # (as in the train step) and the conv
+    t = timed(lambda: TC._conv_w([xs[1]], [w_dx]), kernels=2)
     t["plain_ms"] = cuda_ms(lambda: TC.conv3x3_wp_plain(
         xs[1], *TC.make_wc_we(w_dx, dtype=dtype)), reps=3, warmup=1)
     torch.cuda.empty_cache()
@@ -373,7 +414,8 @@ def time_train_kernels(TC, dev) -> tuple:
     errs["conv3x3_wp_dw"] = dw_err(TC, x, dy, f"conv3x3_wp_dw N={n} bf16")
     kernel = lambda: TC.conv3x3_wp_dw(x, dy)
     ms = cold_ms(kernel)
-    dev_ms = device_ms(kernel)
+    dev_ms = device_ms(kernel, kernels=2)       # dw_bf16, dw_reduce
+    q_ms = queued_ms(kernel)
     plain_ms = cuda_ms(lambda: TC.conv3x3_wp_dw_plain(x, dy), reps=3,
                        warmup=1)
     torch.cuda.empty_cache()
@@ -392,14 +434,17 @@ def time_train_kernels(TC, dev) -> tuple:
                              "max|dw| off the plain version")
     lib_ms = cold_ms(library)
     lib_dev_ms = device_ms(library)
+    lib_q_ms = queued_ms(library)
     b_ms, b_by = bound(1, n, dtype, dw=True)
     out["conv3x3_wp_dw"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        bound_by=b_by, device_ms=dev_ms, queued_ms=q_ms,
+        library_device_ms=lib_dev_ms, library_queued_ms=lib_q_ms,
         library_call="aten.convolution_backward, dw only", l2="cold")
     log(f"[time] conv3x3_wp_dw N={n} {H}x{W} bf16, cold L2: kernel {ms:.3f} "
-        f"ms (profiler device {dev_ms:.3f}), plain {plain_ms:.3f} ms, cuDNN "
-        f"weight gradient {lib_ms:.3f} ms (device {lib_dev_ms:.3f}, "
+        f"ms (profiler device {fmt_ms(dev_ms)}, queued {q_ms:.3f}), plain "
+        f"{plain_ms:.3f} ms, cuDNN weight gradient {lib_ms:.3f} ms (device "
+        f"{fmt_ms(lib_dev_ms)}, queued {lib_q_ms:.3f}, "
         f"{lib_rel:.1e} of max|dw| from the plain version), bound "
         f"{b_ms:.3f} ms ({b_by}); kernel at {b_ms / ms:.1%} of its bound, "
         f"cuDNN at {b_ms / lib_ms:.1%}")
@@ -443,10 +488,12 @@ def time_kernels(TC, dev) -> dict:
 
 def log_conv_time(tag: str, t: dict) -> None:
     log(f"[time] {tag} {H}x{W} bf16, cold L2: kernel {t['ms']:.3f} ms "
-        f"(profiler device {t['device_ms']:.3f}, warm {t['warm_ms']:.3f}), "
-        f"plain {t['plain_ms']:.3f} ms, {t['library_call']} "
-        f"{t['library_ms']:.3f} ms (device {t['library_device_ms']:.3f}, "
-        f"warm {t['library_warm_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
+        f"(profiler device {fmt_ms(t['device_ms'])}, queued "
+        f"{t['queued_ms']:.3f}, warm {t['warm_ms']:.3f}), plain "
+        f"{t['plain_ms']:.3f} ms, {t['library_call']} "
+        f"{t['library_ms']:.3f} ms (device {fmt_ms(t['library_device_ms'])}, "
+        f"queued {t['library_queued_ms']:.3f}, warm "
+        f"{t['library_warm_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
         f"({t['bound_by']}); kernel at {t['bound_ms'] / t['ms']:.1%} of its "
         f"bound")
 
@@ -597,6 +644,19 @@ def _clone(tree):
     return tree_map(torch.clone, tree)
 
 
+@contextlib.contextmanager
+def pair_pack(O, on: bool):
+    """models.onet.PAIR_PACK (the module-wide layout switch) set to ``on``
+    inside the block and restored on every way out of it, a raise
+    included."""
+    old = O.PAIR_PACK
+    O.PAIR_PACK = on
+    try:
+        yield
+    finally:
+        O.PAIR_PACK = old
+
+
 def _loss_and_grads(params, state, x, policy, pair_pack):
     """Loss and the flat gradient of one training forward."""
     from onet_tpu_torch.models.onet import compute_loss, onet_forward
@@ -625,16 +685,16 @@ def train(TC, dev) -> dict:
           for i in range(TRAIN_STEPS)]
 
     # the main path: bench.py's step (ONET_PAIR_PACK=1), pair-packed
-    O.PAIR_PACK = True
-    step = make_train_step(policy=BF16_COMPUTE)
     params, state, opt = _clone(params0), _clone(state0), adam_init(params0)
     for k in ("conv3x3_wp_raw", "conv3x3_wp2_raw", "conv3x3_wp_dw"):
         setattr(getattr(TC, k), "launches", 0)
     TC.conv3x3_wp_raw.stats_launches = TC.conv3x3_wp2_raw.stats_launches = 0
     losses = []
-    for x in xs:
-        params, state, opt, loss = step(params, state, opt, x, LR)
-        losses.append(loss.item())
+    with pair_pack(O, True):
+        step = make_train_step(policy=BF16_COMPUTE)
+        for x in xs:
+            params, state, opt, loss = step(params, state, opt, x, LR)
+            losses.append(loss.item())
     launches = {"conv3x3_wp": TC.conv3x3_wp_raw.launches,
                 "conv3x3_wp2": TC.conv3x3_wp2_raw.launches,
                 "conv3x3_wp_dw": TC.conv3x3_wp_dw.launches,
@@ -659,10 +719,10 @@ def train(TC, dev) -> dict:
         raise AssertionError("BatchNorm running stats did not all move")
 
     # the stacked step (cuDNN only) from the same start, bf16 batch 8
-    O.PAIR_PACK = False
-    step_st = make_train_step(policy=BF16_COMPUTE)
-    _, _, _, loss_st = step_st(_clone(params0), _clone(state0),
-                               adam_init(params0), xs[0], LR)
+    with pair_pack(O, False):
+        step_st = make_train_step(policy=BF16_COMPUTE)
+        _, _, _, loss_st = step_st(_clone(params0), _clone(state0),
+                                   adam_init(params0), xs[0], LR)
     bf16_rel = abs(loss_st.item() - losses[0]) / abs(losses[0])
     log(f"[train] bf16 batch {batch} first-step loss: wp {losses[0]:.6f}, "
         f"stacked {loss_st.item():.6f}, relative difference {bf16_rel:.3e}")
@@ -687,22 +747,22 @@ def train(TC, dev) -> dict:
     # step time (CUDA events, median of 5 after 2 warm-ups), frames/s
     perf = {}
     for wp in (True, False):
-        O.PAIR_PACK = wp
-        fn_step = make_train_step(policy=BF16_COMPUTE)
-        p, st, o = _clone(params0), _clone(state0), adam_init(params0)
-        ms = cuda_ms(lambda: fn_step(p, st, o, xs[0], LR))
         key = "wp" if wp else "stacked"
-        perf[f"train_b{batch}_{key}_step_ms"] = ms
-        perf[f"train_b{batch}_{key}_frames_per_s"] = batch / ms * 1e3
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fn_step(p, st, o, xs[0], LR)
-        torch.cuda.synchronize()
-        perf[f"train_b{batch}_{key}_peak_gib"] = (
-            torch.cuda.max_memory_allocated() / 2 ** 30)
-        if wp:
-            breakdown(lambda: fn_step(p, st, o, xs[0], LR),
-                      f"train step batch {batch} wp", top=14)
+        p, st, o = _clone(params0), _clone(state0), adam_init(params0)
+        with pair_pack(O, wp):
+            fn_step = make_train_step(policy=BF16_COMPUTE)
+            ms = cuda_ms(lambda: fn_step(p, st, o, xs[0], LR))
+            perf[f"train_b{batch}_{key}_step_ms"] = ms
+            perf[f"train_b{batch}_{key}_frames_per_s"] = batch / ms * 1e3
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn_step(p, st, o, xs[0], LR)
+            torch.cuda.synchronize()
+            perf[f"train_b{batch}_{key}_peak_gib"] = (
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+            if wp:
+                breakdown(lambda: fn_step(p, st, o, xs[0], LR),
+                          f"train step batch {batch} wp", top=14)
         log(f"[train] {key} bf16 batch {batch}: step {ms:.2f} ms, "
             f"{batch / ms * 1e3:.1f} frames/s, peak "
             f"{perf[f'train_b{batch}_{key}_peak_gib']:.2f} GiB")
@@ -710,17 +770,16 @@ def train(TC, dev) -> dict:
         torch.cuda.empty_cache()
 
     # one eval step on the trained weights, labels from the frames' blobs
-    O.PAIR_PACK = True
     labels = (xs[0][..., 0] > 0.6).to(torch.int32)
-    metrics, loss_ev, pred = make_eval_step(policy=BF16_COMPUTE)(
-        params, state, xs[0], labels)
+    with pair_pack(O, True):
+        metrics, loss_ev, pred = make_eval_step(policy=BF16_COMPUTE)(
+            params, state, xs[0], labels)
     metrics = {k: float(v) for k, v in metrics.items()}
     log(f"[train] eval step: loss {loss_ev.item():.6f}, metrics {metrics}, "
         f"label share {float(labels.float().mean()):.4f}")
     if pred.shape != (batch, H, W) or not np.isfinite(loss_ev.item()) or \
             not all(0.0 <= v <= 1.0 for v in metrics.values()):
         raise AssertionError(f"eval step output off: {metrics}")
-    O.PAIR_PACK = False
     return dict(launches=launches, losses=losses, bf16_loss_rel=bf16_rel,
                 fp32_loss_rel=l_rel, fp32_grad_cos=cos, fp32_grad_rel=rel_g,
                 eval=metrics, **perf)
@@ -970,8 +1029,9 @@ def head_minmax_bd(dev) -> list:
     # formulation of the train step where no single call computes it
     times = {}
     act = npix * 64 * 2           # bytes of one bf16 half
+    # cold L2, profiler device time and warm, as the conv rows
     times["jsd_loss_fwd"] = dict(
-        ms=cuda_ms(lambda: HD.jsd_loss_fwd(*flat)),
+        **timed(lambda: HD.jsd_loss_fwd(*flat), kernels=2),
         plain_ms=cuda_ms(lambda: HD.jsd_loss_fwd_plain(*flat), reps=3,
                          warmup=1),
         bound_ms=(4 * act + 4) / HBM * 1e3, bound_by="bytes",
@@ -985,7 +1045,7 @@ def head_minmax_bd(dev) -> list:
         return torch.autograd.grad(stacked_loss(lv_, gv_), (lv_, gv_))
 
     times["jsd_loss_bwd"] = dict(
-        ms=cuda_ms(lambda: HD.jsd_loss_bwd(*flat, scale)),
+        **timed(lambda: HD.jsd_loss_bwd(*flat, scale), kernels=1),
         plain_ms=cuda_ms(lambda: HD.jsd_loss_bwd_plain(*flat, scale),
                          reps=3, warmup=1),
         bound_ms=8 * act / HBM * 1e3, bound_by="bytes", library_ms=None,
@@ -994,15 +1054,15 @@ def head_minmax_bd(dev) -> list:
                    "backward (autograd)")
     torch.cuda.empty_cache()
     times["minmax_complement"] = dict(
-        ms=cuda_ms(lambda: HD.minmax_complement(x)),
+        **timed(lambda: HD.minmax_complement(x), kernels=2),
         plain_ms=cuda_ms(lambda: HD.minmax_complement_plain(x)),
         bound_ms=3 * x.numel() * 4 / HBM * 1e3, bound_by="bytes",
         library_ms=None,
         eager_ms=cuda_ms(lambda: complement(minmax_per_frame(x))),
         eager_call="minmax_per_frame + complement")
-    # at 25 MB the call is host-bound: the device time of its two kernels
+    # its two kernels and the host gap between them
     breakdown(lambda: HD.minmax_complement(x), "minmax_complement "
-              "[8,512,512,1] f32", top=4)
+              "[8,512,512,1] f32", top=4, kernels=2)
     n_bd = bd_in[0].shape[0]
     for key, nin in (("conv3x3_bd+stats", 1), ("conv3x3_bd2in+stats", 2)):
         xs, ws = bd_in[:nin], (bd_in[2:3] if nin == 1 else bd_in[3:])
@@ -1042,9 +1102,14 @@ def head_minmax_bd(dev) -> list:
         extra = (f"library {t['library_ms']:.3f} ms" if t["library_ms"]
                  else f"no library call; eager {t['eager_ms']:.3f} ms "
                       f"({t['eager_call']})")
-        log(f"[time] {key}: kernel {t['ms']:.3f} ms, plain "
-            f"{t['plain_ms']:.3f} ms, {extra}, bound {t['bound_ms']:.3f} ms "
-            f"({t['bound_by']})")
+        dev_share = (f"{t['bound_ms'] / t['device_ms']:.1%}"
+                     if t["device_ms"] else "not recorded")
+        log(f"[time] {key}: kernel {t['ms']:.3f} ms cold L2 (profiler "
+            f"device {fmt_ms(t['device_ms'], 4)}, queued {t['queued_ms']:.4f}, "
+            f"warm {t['warm_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
+            f"{extra}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); at "
+            f"{dev_share} of the bound by device time, "
+            f"{t['bound_ms'] / t['queued_ms']:.1%} queued")
     sources = {"jsd_loss_fwd": ("head.cu", "pallas_head.py:67"),
                "jsd_loss_bwd": ("head.cu", "pallas_head.py:89"),
                "minmax_complement": ("head.cu", "pallas_head.py:220"),
@@ -1055,6 +1120,384 @@ def head_minmax_bd(dev) -> list:
                  max_abs_err=errs[k], **times[k])
             for k, (src, rep) in sources.items()]
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the simclutter workload
+# ---------------------------------------------------------------------------
+
+SIM_LEVELS = (0, 1, 2)          # SimclutterConfig's low_snr..high_snr
+SIM_FRAMES = 150                # its frames_per_level
+SIM_CROP = 224                  # its input_sz (400^2 frames cropped)
+SIM_BASE = 64                   # its base_channels
+SIM_EPOCHS = 3                  # of its 301: the one cut
+SIM_BATCH = 10                  # its batch_sz
+
+
+def sim_stats(raw, levels) -> dict:
+    """Per level: mean peak PSNR and region SNR (metrics.psnr_snr) over
+    the frames with a target pixel; the mask fraction."""
+    from onet_tpu_torch.metrics.segmentation import psnr_snr
+
+    out = {"mask_fraction": float(raw["labels"].mean())}
+    for lvl in levels:
+        sel = raw["psnr"] == lvl
+        f, m = raw["imgs"][sel][..., 0], raw["labels"][sel]
+        keep = m.sum(dim=(1, 2)) > 0
+        vals = torch.stack([torch.stack(psnr_snr(a, b))
+                            for a, b in zip(f[keep], m[keep])])
+        peak, region = vals.mean(0).tolist()
+        out[lvl] = dict(peak_psnr_db=peak, region_snr_db=region,
+                        frames=int(keep.sum()))
+    return out
+
+
+def sim_data(dev) -> tuple:
+    """Phase 6, step 1: both clutter families' default datasets generated
+    on the card, twice from one seed; returns (their statistics, the first
+    full batch of the Rayleigh frames)."""
+    from onet_tpu_torch.core.prng import RngStream
+    from onet_tpu_torch.sim.rayleigh import generate_rayleigh_dataset
+
+    data, rayleigh_x = {}, None
+    for bg in ("rayleigh", "k"):
+        # twice from one seed: the first call includes first-use set-up
+        # (torch compiles some special functions at first use); the same
+        # data both times
+        secs, raws = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raws.append(generate_rayleigh_dataset(
+                RngStream(SEED).next(), levels=SIM_LEVELS,
+                frames_per_level=SIM_FRAMES, crop=SIM_CROP, bg=bg))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        raw = raws.pop()
+        if not all(torch.equal(raw[k], raws[0][k]) for k in raw):
+            raise AssertionError(f"{bg}: one seed gave two datasets")
+        del raws
+        n = len(SIM_LEVELS) * SIM_FRAMES
+        if raw["imgs"].shape != (n, SIM_CROP, SIM_CROP, 1) or \
+                raw["imgs"].device.type != dev.type:
+            raise AssertionError(f"{bg} data {tuple(raw['imgs'].shape)} "
+                                 f"on {raw['imgs'].device}")
+        if not (torch.isfinite(raw["imgs"]).all()
+                and torch.isfinite(raw["labels"]).all()):
+            raise AssertionError(f"{bg} data holds NaN or inf")
+        st = sim_stats(raw, SIM_LEVELS)
+        st["generate_s"] = secs
+        data[bg] = st
+        log(f"[sim] {bg}: {n} frames of 400^2 -> {SIM_CROP}^2 generated on "
+            f"the card in {secs[0]:.3f} s (first call), {secs[1]:.3f} s "
+            f"(again, the same data); mask fraction "
+            f"{st['mask_fraction']:.4f}; per level (peak PSNR, region SNR "
+            "dB): " + ", ".join(
+                f"{lvl}: {st[lvl]['peak_psnr_db']:.3f}, "
+                f"{st[lvl]['region_snr_db']:.3f}" for lvl in SIM_LEVELS))
+        if not 0.005 < st["mask_fraction"] < 0.5:
+            raise AssertionError(f"{bg} mask fraction {st['mask_fraction']}")
+        region = [st[lvl]["region_snr_db"] for lvl in SIM_LEVELS]
+        if region != sorted(region) or len(set(region)) != len(region):
+            raise AssertionError(f"{bg} region SNR does not rise: {region}")
+        for lvl in SIM_LEVELS:
+            checked_db = [st[lvl]["region_snr_db"]]
+            if bg == "rayleigh":
+                checked_db.append(st[lvl]["peak_psnr_db"])
+            if not all(lvl - 1.0 < v < lvl + 12.0 for v in checked_db):
+                raise AssertionError(f"{bg} level {lvl}: {st[lvl]} outside "
+                                     f"({lvl - 1}, {lvl + 12}) dB")
+        if bg == "rayleigh":
+            rayleigh_x = raw["imgs"][:SIM_BATCH].clone()
+        del raw
+        torch.cuda.empty_cache()
+    return data, rayleigh_x
+
+
+def drive(TC, res) -> dict:
+    """Phase 6, steps 2 and 3: train() for SIM_EPOCHS epochs, the launches
+    of the pair-packed kernels counted around the call (the eval calls'
+    apart) and asserted; then train(resume=True) one epoch further.
+    Returns the epoch marks (perf_counter seconds) read around the
+    driver's own calls; the driver itself is not changed for the
+    measurement."""
+    import glob
+    import os
+    import tempfile
+
+    from onet_tpu_torch.core.bridge import load_onet_npz
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.models.unet import tree_leaves, tree_map
+    from onet_tpu_torch.train import simclutter as SC
+
+    counted = {"conv3x3_wp": TC.conv3x3_wp_raw,
+               "conv3x3_wp2": TC.conv3x3_wp2_raw,
+               "conv3x3_wp_dw": TC.conv3x3_wp_dw}
+
+    def counts():
+        c = {k: f.launches for k, f in counted.items()}
+        c["conv3x3_wp+stats"] = TC.conv3x3_wp_raw.stats_launches
+        c["conv3x3_wp2+stats"] = TC.conv3x3_wp2_raw.stats_launches
+        return c
+
+    marks = {"train": [], "eval": [], "eval_end": []}
+    eval_launches = {k: 0 for k in counts()}
+    real_eval, real_iter = SC.evaluate, SC.batch_iterator
+
+    def timed_eval(*a, **kw):
+        torch.cuda.synchronize()
+        marks["eval"].append(time.perf_counter())
+        before = counts()
+        out = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        marks["eval_end"].append(time.perf_counter())
+        for k, v in counts().items():
+            eval_launches[k] += v - before[k]
+        return out
+
+    def marked_iter(ds, batch_size, *, gen=None, **kw):
+        if gen is not None:                # the train loop's, once an epoch
+            torch.cuda.synchronize()
+            marks["train"].append(time.perf_counter())
+            res["n_train"] = len(ds)
+        return real_iter(ds, batch_size, gen=gen, **kw)
+
+    out_root = tempfile.mkdtemp(prefix="onet_simclutter_")
+    cfg = dict(eval_every=1, save_epochs=(), out_root=out_root,
+               input_sz=SIM_CROP, frames_per_level=SIM_FRAMES,
+               base_channels=SIM_BASE)
+    SC.evaluate, SC.batch_iterator = timed_eval, marked_iter
+    try:
+        for f in counted.values():
+            f.launches = 0
+        TC.conv3x3_wp_raw.stats_launches = 0
+        TC.conv3x3_wp2_raw.stats_launches = 0
+        t0 = time.perf_counter()
+        params, _, hist = SC.train(SC.SimclutterConfig(
+            epoch_nums=SIM_EPOCHS, **cfg), policy=BF16_COMPUTE, log=False)
+        train_s = time.perf_counter() - t0
+        total = counts()
+    finally:
+        SC.evaluate, SC.batch_iterator = real_eval, real_iter
+    n_train = res["n_train"]
+    steps = SIM_EPOCHS * num_batches(n_train, SIM_BATCH)
+    launches = {k: total[k] - eval_launches[k] for k in total}
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    want.update({"conv3x3_wp+stats": 2 * steps, "conv3x3_wp2+stats": steps})
+    log(f"[sim] train(): {n_train} training frames, {steps} steps in "
+        f"{SIM_EPOCHS} epochs, {train_s:.2f} s; step launches {launches}; "
+        f"eval launches ({len(marks['eval'])} evaluate calls) "
+        f"{eval_launches}; losses {hist['loss']}; eval {hist['eval']}")
+    if launches != want:
+        raise AssertionError(f"driver launches {launches}, expected {want}")
+    if eval_launches["conv3x3_wp_dw"] or not eval_launches["conv3x3_wp"]:
+        raise AssertionError(f"eval launches {eval_launches}")
+    if not all(np.isfinite(hist["loss"])) or \
+            sorted(hist["eval"]) != list(range(SIM_EPOCHS)) or not all(
+                0.0 <= v <= 1.0 for m in hist["eval"].values()
+                for v in m.values()):
+        raise AssertionError(f"driver history off: {hist}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError("non-finite parameter after train()")
+
+    # resume: the milestone of the last epoch, back through the bridge
+    saved = glob.glob(os.path.join(
+        out_root, f"onet_rayleigh_epoch_{SIM_EPOCHS - 1}_*.npz"))
+    if len(saved) != 1:
+        raise AssertionError(f"milestones {os.listdir(out_root)}")
+    file_params, _, file_epoch = load_onet_npz(saved[0])
+    same = lambda a, b: all(torch.equal(x, y) for x, y in  # noqa: E731
+                            zip(tree_leaves(a), tree_leaves(b)))
+    if file_epoch != SIM_EPOCHS - 1 or not same(file_params, params):
+        raise AssertionError("the saved milestone is not the trained state")
+    loaded = {}
+    real_load = SC.load_checkpoint
+
+    def capture(*a, **kw):
+        got = real_load(*a, **kw)
+        loaded.update(params=tree_map(torch.clone, got[0]), epoch=got[2])
+        return got
+
+    SC.load_checkpoint = capture
+    try:
+        t0 = time.perf_counter()
+        _, _, hist2 = SC.train(SC.SimclutterConfig(
+            epoch_nums=SIM_EPOCHS + 1, resume=True, **cfg),
+            policy=BF16_COMPUTE, log=False)
+        resume_s = time.perf_counter() - t0
+    finally:
+        SC.load_checkpoint = real_load
+    log(f"[sim] resume: loaded epoch {loaded.get('epoch')}, ran epochs "
+        f"{sorted(hist2['eval'])} in {resume_s:.2f} s, loss {hist2['loss']}")
+    if loaded.get("epoch") != SIM_EPOCHS - 1 or \
+            sorted(hist2["eval"]) != [SIM_EPOCHS] or \
+            len(hist2["loss"]) != 1 or not same(loaded["params"],
+                                                file_params):
+        raise AssertionError("resume did not continue from the saved epoch")
+    shutil.rmtree(out_root)
+    res.update(train_s=train_s, resume_s=resume_s, launches=launches,
+               eval_launches=eval_launches)
+    return marks
+
+
+def step_operands(TC, run) -> list:
+    """The operands of every kernel launch that ``run()`` makes, copied as
+    it gives them to the kernels: ("conv", xs, taps, bias, bias_relu,
+    stats, out_dtype) for each conv_wp launch, ("dw", x, dy) for each
+    conv_wp_dw launch. The launches themselves run unchanged."""
+    ops = []
+    real_launch, real_dw = TC._launch, TC._launch_dw
+
+    def launch(xs, taps, *rest):
+        ops.append(("conv", [x.clone() for x in xs],
+                    [t.clone() for t in taps], *rest))
+        return real_launch(xs, taps, *rest)
+
+    def launch_dw(x, dy):
+        ops.append(("dw", x.clone(), dy.clone()))
+        return real_dw(x, dy)
+
+    TC._launch, TC._launch_dw = launch, launch_dw
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        TC._launch, TC._launch_dw = real_launch, real_dw
+    return ops
+
+
+def check_step_kernels(TC, ops, tag) -> dict:
+    """Every captured launch of one train step against its plain version
+    on the same operands, at conv_err's and dw_err's tolerances (the
+    stats, dw within SUM_REL of their largest magnitude; y within one bf16
+    rounding); raises on a disagreement. The step must have made
+    PER_STEP's launches: its forward convs carry the stats epilogue, the
+    others are the input-gradient (dx) convs. Returns the largest absolute
+    error of each kind."""
+    errs, seen = {}, {}
+    for op in ops:
+        if op[0] == "dw":
+            _, x, dy = op
+            key = "conv3x3_wp_dw"
+            err = dw_err(TC, x, dy, f"{key} {tag} N={x.shape[0]}")
+        else:
+            _, xs, taps, bias, bias_relu, stats, _ = op
+            name = "conv3x3_wp" if len(xs) == 1 else "conv3x3_wp2"
+            key = name + ("+stats" if stats else "+dx")
+            ws = [TC.make_wc_we(t, dtype=t.dtype) for t in taps]
+            err = conv_err(TC, name, xs, ws, bias,
+                           f"{key} {tag} N={xs[0].shape[0]}",
+                           bias_relu=bias_relu, stats=stats)
+        errs[key] = max(errs.get(key, 0.0), err)
+        seen[key] = seen.get(key, 0) + 1
+    want = {"conv3x3_wp+stats": 2, "conv3x3_wp+dx": 4, "conv3x3_wp2+stats": 1,
+            "conv3x3_wp_dw": PER_STEP["conv3x3_wp_dw"]}
+    if seen != want:
+        raise AssertionError(f"{tag}: launches {seen}, expected {want}")
+    return errs
+
+
+def simclutter_workload(TC, dev) -> dict:
+    """Phase 6: the simclutter workload through its driver at full width
+    (base 64, 224^2 crops of 400^2 frames, batch 10, bf16, pair-packed;
+    SimclutterConfig's defaults). The one cut: epoch_nums, 3 of 301 (and 4
+    for the resume), since 301 epochs do not fit a smoke run.
+
+    1. Both clutter families' default datasets (levels 0-2 x 150 frames)
+       generated on the card, twice from one seed (the same data): wall
+       time of each, mask fraction, peak PSNR and
+       region SNR per level. Checked: finite, mask fraction in (0.005,
+       0.5), the region SNR rising with the level and inside (level - 1,
+       level + 12) dB, the Rayleigh peak PSNR inside that band (the bands
+       tests/test_simulators.py holds the JAX package to). The peak PSNR
+       is printed, not ordered: at 0-2 dB the clutter under the mask sets
+       it, flat in both packages.
+    2. train() for 3 epochs on its own Rayleigh data, the launches of the
+       three pair-packed kernels counted around the call, the eval calls'
+       apart; asserted against the steps times phase 4's per-step counts.
+    3. train(resume=True) to epoch 4: starts at epoch 3 from the saved
+       file, whose params (read through core/bridge.load_onet_npz) equal
+       the first run's and the loaded ones.
+    4. The kernels at the driver's shapes: one train step on the first
+       full batch of the Rayleigh frames (N=20 packed samples) and one on
+       its ragged slice (the last batch's 5 frames, N=10), every launch's
+       operands captured and the kernel held against its plain version on
+       them; each step's loss against the stacked step's from the same
+       start (1e-2 relative, as phase 4).
+    5. Times: each epoch's train and eval wall time, the driver's
+       frames/s, the step alone at the same shapes (CUDA events, median of
+       5 after 2 warm-ups), its profile, and the host share 1 - steps'
+       time / epoch's train time."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.train import simclutter as SC
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    if SC.SimclutterConfig.batch_sz != SIM_BATCH:
+        raise AssertionError("SimclutterConfig's batch is not SIM_BATCH")
+    res = {}
+    res["data"], rayleigh_x = sim_data(dev)
+    lr = SC.SimclutterConfig.base_lr
+    with pair_pack(O, True):
+        marks = drive(TC, res)
+        torch.cuda.empty_cache()
+        n_train = res["n_train"]
+        rag = n_train % SIM_BATCH
+        p0, st0 = O.onet_init(torch.Generator().manual_seed(SEED + 60), 1,
+                              base=SIM_BASE)
+        step = make_train_step(policy=BF16_COMPUTE)
+        with pair_pack(O, False):
+            step_st = make_train_step(policy=BF16_COMPUTE)
+        res["kernel_errs"], res["bf16_loss_rel"] = {}, []
+        for x in (rayleigh_x, rayleigh_x[:rag]) if rag else (rayleigh_x,):
+            tag = f"in the driver's step, batch {x.shape[0]}"
+            got = {}
+            ops = step_operands(TC, lambda: got.update(loss=step(
+                _clone(p0), _clone(st0), adam_init(p0), x, lr)[3]))
+            for k, e in check_step_kernels(TC, ops, tag).items():
+                res["kernel_errs"][k] = max(res["kernel_errs"].get(k, 0.0), e)
+            del ops
+            torch.cuda.empty_cache()
+            with pair_pack(O, False):
+                loss_st = step_st(_clone(p0), _clone(st0), adam_init(p0), x,
+                                  lr)[3].item()
+            loss = got["loss"].item()
+            rel = abs(loss_st - loss) / abs(loss)
+            res["bf16_loss_rel"].append(rel)
+            log(f"[sim] first-step loss {tag}: wp {loss:.6f}, stacked "
+                f"{loss_st:.6f}, relative difference {rel:.3e}")
+            if not rel <= 1e-2:
+                raise AssertionError(f"{tag}: wp/stacked loss differ by {rel}")
+
+        # the step alone at the driver's shapes: full batches and the
+        # ragged one
+        o0 = adam_init(p0)
+        step_ms = cuda_ms(lambda: step(p0, st0, o0, rayleigh_x, lr))
+        rag_ms = cuda_ms(lambda: step(p0, st0, o0, rayleigh_x[:rag], lr)) \
+            if rag else 0.0
+        steps_ms = (n_train // SIM_BATCH) * step_ms + rag_ms
+        breakdown(lambda: step(p0, st0, o0, rayleigh_x, lr),
+                  f"train step {SIM_CROP}^2 batch {SIM_BATCH} wp", top=8)
+    epochs = []
+    for e in range(SIM_EPOCHS):
+        tr = (marks["eval"][e] - marks["train"][e]) * 1e3
+        ev = (marks["eval_end"][e] - marks["eval"][e]) * 1e3
+        epochs.append(dict(train_ms=tr, eval_ms=ev,
+                           frames_per_s=n_train / tr * 1e3,
+                           host_share=1.0 - steps_ms / tr))
+    res.update(epochs=epochs, step_ms=step_ms, ragged_step_ms=rag_ms,
+               step_frames_per_s=SIM_BATCH / step_ms * 1e3)
+    for e, ep in enumerate(epochs):
+        log(f"[sim] epoch {e}: train {ep['train_ms']:.1f} ms "
+            f"({ep['frames_per_s']:.1f} frames/s, host share "
+            f"{ep['host_share']:.3f}), eval {ep['eval_ms']:.1f} ms")
+    log(f"[sim] step alone, batch {SIM_BATCH} at {SIM_CROP}^2 bf16 "
+        f"pair-packed: {step_ms:.3f} ms ({SIM_BATCH / step_ms * 1e3:.1f} "
+        f"frames/s); ragged batch of {rag}: {rag_ms:.3f} ms; an epoch's "
+        f"steps {steps_ms:.1f} ms")
+    return res
 
 
 def main() -> int:
@@ -1106,6 +1549,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase5_rows = head_minmax_bd(dev)
     log(f"[phase5] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sim = simclutter_workload(TC, dev)
+    log("[sim] " + json.dumps(sim))
+    steady = sim["epochs"][1:] or sim["epochs"]
+    log(f"[sim] simclutter driver, {SIM_CROP}x{SIM_CROP} batch 10 bf16 "
+        f"pair-packed: {np.median([e['frames_per_s'] for e in steady]):.1f} "
+        f"frames/s over epochs 1-{SIM_EPOCHS - 1}, host share "
+        f"{np.median([e['host_share'] for e in steady]):.3f}; the step "
+        f"alone {sim['step_frames_per_s']:.1f} frames/s; on {card}")
+    log(f"[phase6] phase took {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -1132,6 +1586,18 @@ def main() -> int:
         replaces="onet_tpu/ops/pallas_conv.py:457",
         launches=trained["launches"]["conv3x3_wp_dw"],
         max_abs_err=errs["conv3x3_wp_dw"], **times["conv3x3_wp_dw"]))
+    # the same kernels' launches in phase 6's train() (the eval calls'
+    # apart), beside the phase-4 counts in "launches", and their largest
+    # errors at the driver's shapes (N=20 and N=10 at 224^2)
+    sl = sim["launches"]
+    sim_launches = {"conv3x3_wp+stats": sl["conv3x3_wp+stats"],
+                    "conv3x3_wp2+stats": sl["conv3x3_wp2+stats"],
+                    "conv3x3_wp+dx": sl["conv3x3_wp"] - sl["conv3x3_wp+stats"],
+                    "conv3x3_wp_dw": sl["conv3x3_wp_dw"]}
+    for row in rows:
+        if row["name"] in sim_launches:
+            row["simclutter_launches"] = sim_launches[row["name"]]
+            row["simclutter_max_abs_err"] = sim["kernel_errs"][row["name"]]
     rows += phase5_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

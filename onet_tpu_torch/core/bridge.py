@@ -7,7 +7,8 @@
   twin-ness read from the file's own shapes.
 * ``import_torch_state``: the reference ``state_dict`` schema (``topu.*`` /
   ``dwnu.*``, OIHW; ``onet_tpu/core/torch_import.py``), so reference
-  ``.pytorch`` weights serve too.
+  ``.pytorch`` weights serve too; ``import_torch_checkpoint`` reads such a
+  file (its save schemas or a bare state_dict).
 * ``adam_state_from_jax``: the JAX ``adam_init``/``adam_update`` state
   (optax's count, mu, nu, as numpy) to the port's Adam state, so a run can
   start both frameworks from the same params, BN state and optimizer state.
@@ -23,6 +24,8 @@ import torch
 
 from onet_tpu_torch.core.device import resolve_device
 from onet_tpu_torch.models.unet import _channels, tree_map
+
+TORCH_EXTS = (".pt", ".pth", ".pytorch")
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -173,3 +176,26 @@ def import_torch_state(sd, *, weight_share=None, device=None):
         return {"top": pt}, {"top": st}
     pd, sdn = _import_unet(sd, "dwnu", dev)
     return {"top": pt, "down": pd}, {"top": st, "down": sdn}
+
+
+def import_torch_checkpoint(path: str, *, weight_share=None, device=None):
+    """Load a reference ``.pt/.pth/.pytorch`` checkpoint: ``{"net": sd,
+    "epoch": e}`` (the simclutter driver's), ``{"net": sd, "save_epoch":
+    e}`` (the zy3 driver's) or a bare state_dict. Only tensors and plain
+    containers are unpickled. Returns (params, state, epoch) on
+    ``device``."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    epoch = 0
+    if isinstance(blob, dict) and "net" in blob:
+        epoch = int(blob.get("epoch", blob.get("save_epoch", 0)))
+        sd = blob["net"]
+    elif isinstance(blob, dict) and all("." in k for k in blob):
+        sd = blob
+    else:
+        raise ValueError(
+            f"{path}: expected a reference checkpoint dict with a 'net' "
+            f"state_dict or a bare state_dict; got {type(blob).__name__} "
+            f"with keys {list(blob)[:4] if isinstance(blob, dict) else ''}")
+    params, state = import_torch_state(sd, weight_share=weight_share,
+                                       device=device)
+    return params, state, epoch

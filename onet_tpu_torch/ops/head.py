@@ -27,7 +27,9 @@ kernel launches in ``.launches``: ``jsd_loss_fwd`` (replaces
 ``_head_fwd_kernel``, ``pallas_head.py:67``), ``jsd_loss_bwd``
 (``_head_bwd_kernel``, ``:89``) and ``minmax_complement``
 (``_minmax_comp_kernel``, ``:220``; ``paired_input`` launches the same
-kernel and counts there).
+kernel and counts there). The C functions' signatures are set once
+(``_lib``); the forward grid and the min-max chunk count are computed once
+per size.
 
 Contract difference: the JAX forward falls back to XLA, and its backward
 raises, when no multiple-of-8 row block divides the pixel count. Here both
@@ -37,6 +39,7 @@ directions take any pixel count and any C.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -127,12 +130,42 @@ def _kernel_inputs(ts):
     return ts, vec
 
 
-def _fn(name, nptr, nint):
-    fn = getattr(_build.load("head"), name)
-    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_longlong] + \
-        [ctypes.c_int] * nint + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.cache
+def _lib():
+    """csrc/head.cu's C functions, their signatures set once."""
+    lib = _build.load("head")
+    sig = {"onet_head_fwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
+           "onet_minmax_chunks": ([ctypes.c_longlong], ctypes.c_int),
+           "onet_head_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                             ctypes.c_int),
+           "onet_head_bwd": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                             ctypes.c_int),
+           "onet_minmax_complement": (
+               [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_void_p],
+               ctypes.c_int)}
+    fns = {}
+    for name, (args, res) in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+        fns[name] = fn
+    return fns
+
+
+@functools.cache
+def _fwd_blocks(npix: int) -> int:
+    """The forward kernel's fixed grid, once per pixel count (all it
+    depends on)."""
+    return _lib()["onet_head_fwd_blocks"](npix)
+
+
+@functools.cache
+def _minmax_chunks(m: int) -> int:
+    """The min-max kernel's chunks per frame, once per frame size (all it
+    depends on)."""
+    return _lib()["onet_minmax_chunks"](m)
 
 
 def _raise_on(err, what):
@@ -149,13 +182,10 @@ def jsd_loss_fwd(lt, ht, ld, hd):
     b, h, w, c = lt.shape
     npix = b * h * w
     dev = lt.device
-    blocks = _build.load("head").onet_head_fwd_blocks
-    blocks.argtypes = [ctypes.c_longlong]
-    blocks.restype = ctypes.c_int
-    nblk = blocks(npix)
+    nblk = _fwd_blocks(npix)
     part = torch.empty(nblk, dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    fn = _fn("onet_head_fwd", 6, 4)
+    fn = _lib()["onet_head_fwd"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in ts), part.data_ptr(),
@@ -178,7 +208,7 @@ def jsd_loss_bwd(lt, ht, ld, hd, scale):
     b, h, w, c = lt.shape
     outs = [torch.empty_like(t) for t in ts]
     vec = vec and all(o.data_ptr() % 16 == 0 for o in outs)
-    fn = _fn("onet_head_bwd", 9, 3)
+    fn = _lib()["onet_head_bwd"]
     with torch.cuda.device(lt.device):
         stream = torch.cuda.current_stream(lt.device).cuda_stream
         err = fn(*(t.data_ptr() for t in ts), scale.data_ptr(),
@@ -219,17 +249,10 @@ def _minmax_launch(x, xn, xc):
         raise TypeError(f"min-max kernel takes bf16 or f32, got {x.dtype}")
     b = x.shape[0]
     m = x.numel() // b if b else 0
-    lib = _build.load("head")
-    chunks = lib.onet_minmax_chunks
-    chunks.argtypes = [ctypes.c_longlong]
-    chunks.restype = ctypes.c_int
-    nchunk = chunks(m)
+    nchunk = _minmax_chunks(m)
     part = torch.empty((2, b, max(nchunk, 1)), dtype=torch.float32,
                        device=x.device)
-    fn = lib.onet_minmax_complement
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _lib()["onet_minmax_complement"]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), part.data_ptr(), xn.data_ptr(), xc.data_ptr(),

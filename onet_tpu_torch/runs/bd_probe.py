@@ -13,9 +13,10 @@ with ``PYTHONPATH`` set to the tree whose kernel is timed::
 It imports only names every tree of the port since the bd kernel has:
 ``ops.conv_bd`` and ``runs.dw_probe``'s timers. Every call is timed with
 the L2 cache flushed before it, outside the CUDA events (median of
-``dw_probe.REPS``), and by the profiler's device time (no host work
-counts). Beside the kernel: cuDNN's conv alone (``F.conv2d``, the two-input
-form on a concat built outside the timing) and the library formulation of
+``dw_probe.REPS``), by the profiler's device time and by CUDA events
+with the card held behind a spin kernel (no host work counts in either).
+Beside the kernel: cuDNN's conv alone (``F.conv2d``, the two-input form
+on a concat built outside the timing) and the library formulation of
 the fused epilogue, cuDNN's conv then a separate f32 stats pass
 (``conv_stats_library``). The kernel is held to its plain version
 (``rel_err``: y, s1, s2 over their largest magnitude) and called twice
@@ -31,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from onet_tpu_torch.runs.dw_probe import (PEAK_BF16_FLOP_S, PEAK_BYTES_S,
-                                          card_line, cold_ms, device_ms)
+                                          card_line, cold_ms, device_ms,
+                                          queued_ms)
 
 N, H, W, L = 8, 512, 512, 128
 
@@ -78,8 +80,10 @@ def run_form(BD, nin: int, gen) -> dict:
                     ("library_conv_plus_stats", library)):
         out[f"{key}_ms"] = cold_ms(fn)
         out[f"{key}_device_ms"] = device_ms(fn)
+        out[f"{key}_queued_ms"] = queued_ms(fn)
     out["bound_ms"], out["bound_by"] = bound(nin)
-    out["kernel_share_of_bound"] = out["bound_ms"] / out["kernel_device_ms"]
+    dev_ms = out["kernel_device_ms"]          # None: records missed
+    out["kernel_share_of_bound"] = out["bound_ms"] / dev_ms if dev_ms else None
     return out
 
 

@@ -16,8 +16,9 @@ with ``PYTHONPATH`` set to the tree whose kernel is timed::
     PYTHONPATH=path/to/other/tree python onet_tpu_torch/runs/conv_probe.py
 
 Every call is timed with the L2 cache flushed before it, outside the CUDA
-events (median of ``dw_probe.REPS``), and by the profiler's device time (no
-host work counts). The yardstick is ``F.conv2d`` on the unpacked
+events (median of ``dw_probe.REPS``), by the profiler's device time and by
+CUDA events with the card held behind a spin kernel (no host work counts
+in either). The yardstick is ``F.conv2d`` on the unpacked
 channels-last tensors: alone for the stats and dx forms (no PyTorch call
 computes the statistics), with the bias for serving (no ReLU), the
 two-input forms on a concat built outside the timing. The stats forms are
@@ -33,7 +34,8 @@ import os
 import torch
 
 from onet_tpu_torch.runs.dw_probe import (PEAK_BF16_FLOP_S, PEAK_BYTES_S,
-                                          card_line, cold_ms, device_ms)
+                                          card_line, cold_ms, device_ms,
+                                          queued_ms)
 
 H, W, C = 512, 512, 64
 # name: (inputs, packed samples, epilogue)
@@ -100,6 +102,7 @@ def run_form(TC, name: str, gen) -> dict:
     for key, fn in (("kernel", kernel), ("cudnn", cudnn)):
         out[f"{key}_ms"] = cold_ms(fn)
         out[f"{key}_device_ms"] = device_ms(fn)
+        out[f"{key}_queued_ms"] = queued_ms(fn)
     out["bound_ms"], out["bound_by"] = bound(nin, n, epi)
     out["kernel_share_of_bound"] = out["bound_ms"] / out["kernel_ms"]
     return out

@@ -10,8 +10,9 @@ with ``PYTHONPATH`` set to the tree whose kernel is timed::
     PYTHONPATH=path/to/other/tree python onet_tpu_torch/runs/dw_probe.py
 
 Every call is timed with the L2 cache flushed before it, outside the CUDA
-events (the medians of ``REPS``), and again by the profiler's device time
-(no host work counts). ``*_rot`` times each call on another of ``ROT``
+events (the medians of ``REPS``), again by the profiler's device time and
+by CUDA events with the card held behind a spin kernel (no host work
+counts in either). ``*_rot`` times each call on another of ``ROT``
 copies of the inputs, so no byte of a call's inputs can be left in the L2
 by the call before. ``read_ms`` reads x and dy once (``amax`` of each): the
 card's reachable read rate. Prints one JSON line.
@@ -33,6 +34,7 @@ ROT = 4
 FLUSH_BYTES = 256 << 20       # five times the H100's 50 MB L2
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12     # H100 SXM dense bf16 tensor cores
+SPIN_CYCLES = 2_000_000       # about 1 ms of the H100's SM clock
 
 _scratch: dict = {}
 
@@ -65,21 +67,68 @@ def cold_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def queued_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
+    """Median over ``reps`` single calls, each after an L2 flush, timed by
+    CUDA events while the card runs a spin kernel of ``SPIN_CYCLES``
+    queued before them: the host has queued the call's kernels before the
+    card reaches them, so no host work counts, and the time runs from the
+    call's first kernel's start to its last kernel's end (the card's own
+    gaps between them included). Needs no profiler."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for i in range(reps):
+        flush_l2(i)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = REPS, kernels: int | None = None,
+              tries: int = 3) -> float | None:
     """Device time of one call from torch.profiler: the sum over its
     kernels, mean of ``reps`` calls, each after an L2 flush (the flush's
-    own kernel left out). No host work between the kernels counts."""
+    and the spin kernels left out). No host work between the kernels
+    counts.
+
+    The mean holds only if every launch was recorded, so the records are
+    counted first: ``reps * kernels`` of them where the caller states how
+    many kernels one call launches, else a count of each distinct kernel
+    that is a multiple of ``reps``. A spin kernel before the calls and a
+    flush after them keep the calls' records off both ends of the trace.
+    A short count is profiled again, up to ``tries`` times; then no mean
+    is taken over the missing records and the result is None."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            flush_l2(i)
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    for attempt in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for i in range(reps):
+                flush_l2(i)
+                fn()
+            flush_l2(reps)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "FillFunctor" not in e.key) / 1e3 / reps
+               and "FillFunctor" not in e.key
+               and "spin_kernel" not in e.key]
+        counts = [(e.key[:60], e.count) for e in evs]
+        total = sum(c for _, c in counts)
+        if (total == reps * kernels if kernels is not None else
+                total > 0 and all(c % reps == 0 for _, c in counts)):
+            return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+        print(f"[device_ms] try {attempt + 1}: {total} kernel records in "
+              f"{reps} calls, expected "
+              f"{reps * kernels if kernels is not None else 'a multiple'} "
+              f"of {reps}: {counts}", flush=True)
+    return None
 
 
 def card_line() -> str:
@@ -132,7 +181,9 @@ def main() -> None:
         out[f"{name}_ms"] = cold_ms(fn)
         calls = itertools.count()
         out[f"{name}_rot_ms"] = cold_ms(lambda: fn(next(calls)))
-        out[f"{name}_device_ms"] = device_ms(fn)
+        out[f"{name}_device_ms"] = device_ms(
+            fn, kernels=2 if name == "kernel" else None)
+        out[f"{name}_queued_ms"] = queued_ms(fn)
     nbytes = 2 * N * H * W * C * 2 + 9 * C * C * 4    # x, dy in; dw out
     flops = 2 * 9 * C * C * N * H * W
     out["bound_ms"] = max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S) * 1e3

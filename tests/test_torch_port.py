@@ -27,6 +27,12 @@ def test_port_imports_neither_jax_nor_onet_tpu():
     assert "onet_tpu_torch.ops.conv_bd" in mods
     assert "onet_tpu_torch.runs.bd_epilogue_probe" in mods
     assert "onet_tpu_torch.runs.bd_probe" in mods
+    for new in ("core.prng", "core.checkpoint", "sim.targets",
+                "sim.rayleigh", "sim.kdist", "data.arrays",
+                "data.simclutter", "data.augment", "models.arch",
+                "report.logs", "report.curves", "train.preempt",
+                "train.simclutter"):
+        assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -52,7 +58,15 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         load_onet_npz)
     from onet_tpu_torch.core.device import resolve_device
     from onet_tpu_torch.models.onet import onet_init
+    from onet_tpu_torch.core.checkpoint import load_onet_auto
+    from onet_tpu_torch.core.prng import RngStream, make_generator
+    from onet_tpu_torch.data.simclutter import (load_simclutter_pt,
+                                                simclutter_datasets)
     from onet_tpu_torch.serve.http import ServingSession
+    from onet_tpu_torch.sim.kdist import KDistSimulator, kdist_frames
+    from onet_tpu_torch.sim.rayleigh import (generate_rayleigh_dataset,
+                                             rayleigh_frames)
+    from onet_tpu_torch.train.simclutter import SimclutterConfig, train
 
     gen = torch.Generator().manual_seed(0)
     calls = [
@@ -65,6 +79,20 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: adam_state_from_jax(0, {"w": np.zeros(2, np.float32)},
                                     {"w": np.zeros(2, np.float32)}),
         lambda: ServingSession(None, None, batch=1, in_channels=1),
+        lambda: RngStream(0),
+        lambda: RngStream(0, "cpu").next("cuda"),
+        lambda: make_generator(0),
+        lambda: rayleigh_frames(gen, 0.0, n_frames=1, frame_size=8, crop=8),
+        lambda: generate_rayleigh_dataset(gen, levels=(0,),
+                                          frames_per_level=1, crop=8),
+        lambda: KDistSimulator(gen, size=8),
+        lambda: kdist_frames(gen, 0.0, n_frames=1, size=8, crop=8),
+        lambda: simclutter_datasets(gen, frames_per_level=1, crop=8),
+        lambda: load_simclutter_pt(str(tmp_path / "missing.pt")),
+        lambda: load_onet_auto(str(tmp_path / "missing.npz")),
+        lambda: train(SimclutterConfig(base_channels=8, input_sz=8,
+                                       frames_per_level=1, epoch_nums=1,
+                                       out_root=str(tmp_path)), log=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
