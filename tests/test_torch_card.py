@@ -267,21 +267,59 @@ def test_head_kernels_match_plain(dev, shape, dtype):
         assert _rel(gr, r) <= tol
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 64, 70, 3),
-                                   (1, 512, 512, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_minmax_kernel_matches_plain(dev, shape, dtype):
-    g = torch.Generator().manual_seed(shape[1])
-    x = (5 * torch.rand(shape, generator=g) - 1).to(dev, dtype)
+def _same(a, b):
+    """Bit-level agreement as torch.equal sees it, NaN positions included:
+    the same NaN mask, and equal values everywhere else."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+def _minmax_matches_plain(x):
     n = THD.minmax_complement.launches
     xn, xc = THD.minmax_complement(x)
     pair = THD.paired_input(x)
     torch.cuda.synchronize()
     assert THD.minmax_complement.launches == n + 2
     rn, rc = THD.minmax_complement_plain(x)
-    assert xn.dtype == xc.dtype == dtype
-    assert torch.equal(xn, rn) and torch.equal(xc, rc)
-    assert torch.equal(pair, torch.cat([rn, rc]))
+    assert xn.dtype == xc.dtype == x.dtype
+    assert _same(xn, rn) and _same(xc, rc)
+    assert _same(pair, torch.cat([rn, rc]))
+
+
+# (3, 37, 53, 1) and (4, 29, 31, 3): m * sizeof(T) not a multiple of 16,
+# so frame starts and paired_input's second half are misaligned;
+# (8, 512, 512, 1): the train batch's frames; (1, 1024, 1500, 1) and
+# (1, 2048, 1600, 1): frames too large to stay in shared memory (f32;
+# bf16 only the second)
+@pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 64, 70, 3),
+                                   (1, 512, 512, 1), (4, 29, 31, 3),
+                                   (8, 512, 512, 1), (1, 1024, 1500, 1),
+                                   (1, 2048, 1600, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minmax_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator().manual_seed(shape[1])
+    _minmax_matches_plain((5 * torch.rand(shape, generator=g) - 1)
+                          .to(dev, dtype))
+
+
+@pytest.mark.parametrize("case", ["nan", "posinf", "neginf", "constant"])
+@pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 512, 512, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minmax_kernel_nonfinite_matches_plain(dev, case, shape, dtype):
+    """NaN, +-inf and constant frames as the plain version (and the JAX
+    kernel, tests/test_torch_head.py) treat them: min and max propagate
+    NaN and the clamp keeps it. The value sits in the last frame, past the
+    first CTA's share of a large frame."""
+    g = torch.Generator().manual_seed(11)
+    x = 5 * torch.rand(shape, generator=g) - 1
+    if case == "constant":
+        x[-1] = 2.5
+    else:
+        x[-1, shape[1] - 3, shape[2] // 2, 0] = {
+            "nan": float("nan"), "posinf": float("inf"),
+            "neginf": float("-inf")}[case]
+    _minmax_matches_plain(x.to(dev, dtype))
 
 
 # W of 1, 127, 129, 260 and H of 1, 3, 130 against the 2-row x 128-pixel

@@ -154,6 +154,45 @@ def test_minmax_complement_matches_jax(shape):
         assert float(xn[..., 1].amax()) < 0.5
 
 
+_jminmax = jax.jit(PH.minmax_complement)
+
+
+def _special_frames(case):
+    """Two 8x8 frames: frame 0 ordinary, frame 1 holding ``case``."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-2, 7, size=(2, 8, 8, 1)).astype(np.float32)
+    if case == "constant":
+        x[1] = 2.5
+    else:
+        x[1, 3, 5, 0] = {"nan": np.nan, "posinf": np.inf,
+                         "neginf": -np.inf}[case]
+    return x
+
+
+@pytest.mark.parametrize("case", ["nan", "posinf", "neginf", "constant"])
+def test_minmax_complement_nonfinite_matches_jax(case):
+    """The contract the card kernel is held to on NaN, +-inf and constant
+    frames: jnp.min/jnp.max propagate NaN and jnp.clip keeps it, so a frame
+    holding a NaN (or -inf) is NaN throughout, one holding +inf is NaN at
+    that pixel only (inf / inf) and 0 / 1 elsewhere, and a constant frame
+    gives 0 / 1. The ordinary frame beside it is untouched."""
+    x = _special_frames(case)
+    xn, xc = TH.minmax_complement_plain(torch.tensor(x))
+    jn, jc = (np.asarray(a) for a in _jminmax(jnp.asarray(x)))
+    for got, ref in ((xn.numpy(), jn), (xc.numpy(), jc)):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        np.testing.assert_allclose(got, ref, atol=1e-6, equal_nan=True)
+    pair = TH.paired_input(torch.tensor(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(pair),
+                                  np.isnan(np.concatenate([jn, jc])))
+    assert np.isfinite(jn[0]).all() and np.isfinite(jc[0]).all()
+    nan_px = {"nan": 64, "posinf": 1, "neginf": 64, "constant": 0}[case]
+    assert np.isnan(jn[1]).sum() == np.isnan(jc[1]).sum() == nan_px
+    if case in ("posinf", "constant"):
+        ok = ~np.isnan(jn[1])
+        assert (jn[1][ok] == 0).all() and (jc[1][ok] == 1).all()
+
+
 def test_minmax_bf16_keeps_the_dtype():
     rng = np.random.default_rng(7)
     x = rng.uniform(0, 3, size=(2, 8, 8, 1)).astype(np.float32)
