@@ -31,12 +31,34 @@
 //  * Backward: the same walk, no reduction across pixels; the cotangent
 //    scale dloss / (2N) is read from device memory (no host sync); the
 //    gradients are written in the inputs' dtype.
-//  * Min-max: two passes over a (chunk, frame) grid, so every SM has work
-//    (one block per frame would leave 124 of 132 SMs idle): min_max_part
-//    writes each 4096-element chunk's min and max; minmax_apply folds its
-//    frame's partials, then writes xn = (x - lo) / (hi - lo + 1.1920929e-07)
-//    and clip(1 - xn, 0, 1) for its chunk. Built without fast-math, so the
-//    f32 division is IEEE and the result equals the plain version's bits.
+//  * Min-max: one launch, minmax_cluster, over a (K, frame) grid whose
+//    clusters are the K CTAs of one frame (K from onet_minmax_setup, set at
+//    launch time through cudaLaunchKernelEx; up to 16, above 8 as a
+//    non-portable size). CTA r owns a contiguous share of its frame.
+//    Resident form (the share fits 200 KB of shared memory): the threads
+//    load the share's 16-byte aligned body with 16-byte loads, 8 in flight
+//    each, copy it to shared memory and fold min/max as it arrives; the
+//    unaligned head and tail come in as scalars. Each CTA then pushes its
+//    (lo, hi) into a slot of every peer's shared memory (mapa + st.async,
+//    completing 8 bytes on that peer's mbarrier) and waits on its own
+//    mbarrier for the K pairs: one notification, no cluster barrier around
+//    the exchange and none at exit (a CTA passes its wait only after every
+//    push into it has landed). The mbarrier's initialisation is published
+//    by a split cluster barrier whose wait comes after the load. xn = (x -
+//    lo) / (hi - lo + 1.1920929e-07) and clip(1 - xn, 0, 1) are then
+//    written from the on-chip copy with 16-byte stores, so x is read from
+//    HBM once (3 x 8 MiB moved at [8,512,512,1] f32). Streaming form (a
+//    share too large even at K = 16, e.g. a 1024 x 1500 f32 frame): the
+//    same launch folds while it streams its share from global memory,
+//    exchanges, then reads the share again (mostly from L2). Each output's
+//    16-byte body is aligned on its own address, with scalar edges, so
+//    frames of any size and paired_input's second half (an offset of B * m
+//    elements) take any alignment. min/max are min.NaN/max.NaN and the
+//    clamp keeps a NaN, as jnp.min/jnp.max/jnp.clip and torch's
+//    amin/amax/clamp. Built without fast-math, so the f32 division is IEEE
+//    and the result equals the plain version's bits. A trace pointer, null
+//    on the main path, lets runs/minmax_probe.py read each CTA's SM and the
+//    clocks of its load, exchange and write phases.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +72,40 @@ constexpr int PPB = THREADS / G;            // pixel groups per block
 constexpr int PPW = 32 / G;                 // pixel groups per warp
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int FWD_MAX_BLOCKS = 1024;        // forward partials, at most
-constexpr int MM_CHUNK = THREADS * 16;      // elements per min-max block
 constexpr float MM_EPS = 1.1920929e-07f;
+// Two alternatives of the min-max kernel stay buildable for the A/B of
+// onet_tpu_torch/runs/minmax_probe.py (nvcc -DMM_TMA=1, -DMM_PUSH=0): the
+// share brought on chip by TMA bulk copies (slower by 1.3-1.5 us than the
+// threads' own 16-byte loads at [8,512,512,1]), and the pairs pulled
+// through mapa + ld.shared::cluster between two cluster barriers (slower
+// by ~1 us than the st.async push).
+#ifndef MM_TMA
+#define MM_TMA 0
+#endif
+#ifndef MM_PUSH
+#define MM_PUSH 1
+#endif
+constexpr int MM_THREADS = 512;
+constexpr int MM_WARPS = MM_THREADS / 32;
+constexpr int MM_KMAX = 16;                 // CTAs a frame, at most
+constexpr long long MM_BUDGET = 200 * 1024; // a resident share, at most
+constexpr long long MM_MIN_SHARE = 32768;   // bytes a raised K leaves a CTA
+constexpr int MM_SPREAD = 116 * 1024;       // more than half an SM's 228 KB
+constexpr int MM_CH = 16384;                // bytes of one bulk copy (TMA)
+constexpr int MM_BATCH = 8;                 // 16-byte loads a thread issues
+constexpr int MM_MAX_CH = (MM_BUDGET + MM_CH - 1) / MM_CH;
+// shared memory: the bulk copies' mbarriers (TMA), the exchange's mbarrier,
+// the warps' (lo, hi), the K CTAs' pairs (pull: this CTA's own), then the
+// share (shifted by the share's address mod 16, so its aligned body lands
+// on 16-byte boundaries)
+constexpr int MM_OFF_XBAR = 112;
+constexpr int MM_OFF_PAIRS = 128;
+constexpr int MM_OFF_CTA = MM_OFF_PAIRS + MM_WARPS * 8;
+constexpr int MM_HEADER = 512;
+static_assert(MM_MAX_CH * 8 <= MM_OFF_PAIRS, "mbarriers");
+static_assert(MM_OFF_CTA + 8 * MM_KMAX <= MM_HEADER, "header");
+static_assert(MM_MAX_CH * 8 <= MM_OFF_XBAR, "xbar");
+static_assert(MM_HEADER + MM_BUDGET + 16 <= 232448, "227 KB a block");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -251,74 +305,384 @@ head_bwd(const T* __restrict__ lt, const T* __restrict__ ht,
   }
 }
 
-// Block-wide min and max; the result is valid in every thread.
-__device__ __forceinline__ void block_minmax(float& lo, float& hi) {
-  __shared__ float s_lo[THREADS / 32], s_hi[THREADS / 32];
+// ---- min-max: NaN-propagating folds, barriers, bulk copies, the cluster
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// clip(v, 0, 1), a NaN kept (torch.clamp, jnp.clip)
+__device__ __forceinline__ float clip01(float v) {
+  return nan_min(nan_max(v, 0.f), 1.f);
+}
+
+__device__ __forceinline__ void fold(float v, float& lo, float& hi) {
+  lo = nan_min(lo, v);
+  hi = nan_max(hi, v);
+}
+
+template <typename T>
+__device__ __forceinline__ void fold16(const uint4& raw, float& lo,
+                                       float& hi) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) fold(to_f(e[j]), lo, hi);
+}
+
+__device__ __forceinline__ int mis16(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Elements of T before p reaches a 16-byte boundary, at most n.
+template <typename T>
+__device__ __forceinline__ int head_of(const T* p, int n) {
+  const int h = ((16 - mis16(p)) & 15) / (int)sizeof(T);
+  return h < n ? h : n;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory to this CTA's shared address `dst`, signalling the barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The (lo, hi) pair at shared address `addr` of CTA `rank` of the cluster.
+__device__ __forceinline__ float2 peer_pair(uint32_t addr, int rank) {
+  float2 v;
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %2, %3;\n"
+      "ld.shared::cluster.v2.f32 {%0, %1}, [ra];\n}\n"
+      : "=f"(v.x), "=f"(v.y)
+      : "r"(addr), "r"(rank)
+      : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned sm_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// (lo, hi) into the pair at shared address `addr` of CTA `rank` of the
+// cluster, completing 8 bytes of the transaction on its barrier at `bar`.
+__device__ __forceinline__ void push_pair(uint32_t addr, uint32_t bar,
+                                          int rank, float lo, float hi) {
+  asm volatile(
+      "{\n.reg .b32 ra, rb;\n"
+      "mapa.shared::cluster.u32 ra, %0, %2;\n"
+      "mapa.shared::cluster.u32 rb, %1, %2;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+      "[ra], {%3, %4}, [rb];\n}\n" ::"r"(addr),
+      "r"(bar), "r"(rank), "f"(lo), "f"(hi)
+      : "memory");
+}
+
+__device__ __forceinline__ void warp_minmax(float& lo, float& hi) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(FULL, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, o));
+    lo = nan_min(lo, __shfl_xor_sync(FULL, lo, o));
+    hi = nan_max(hi, __shfl_xor_sync(FULL, hi, o));
   }
-  const int warp = threadIdx.x / 32;
-  __syncthreads();                  // s_lo/s_hi free from an earlier call
-  if (threadIdx.x % 32 == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
+}
+
+// min and max of g[0, n) in global memory: 16-byte loads over the aligned
+// body, scalars at the edges.
+template <typename T>
+__device__ __forceinline__ void fold_global(const T* g, int n, float& lo,
+                                            float& hi) {
+  constexpr int V = 16 / sizeof(T);
+  const int head = head_of(g, n);
+  const int nv = (n - head) / V, tail0 = head + nv * V;
+  const int tid = threadIdx.x;
+  if (tid < head) fold(to_f(g[tid]), lo, hi);
+  if (tid < n - tail0) fold(to_f(g[tail0 + tid]), lo, hi);
+  const uint4* body = reinterpret_cast<const uint4*>(g + head);
+#pragma unroll 4
+  for (int i = tid; i < nv; i += MM_THREADS) fold16<T>(__ldg(body + i), lo, hi);
+}
+
+// xn (WHICH & 1) and xc (WHICH & 2) of src[0, n) (shared or global memory):
+// 16-byte stores over the outputs' aligned body, scalars at the edges; with
+// WHICH == 3 both outputs lie at the same address mod 16. src is read in
+// 16-byte vectors where it lies as the outputs do, else by element.
+template <typename T, int WHICH>
+__device__ __forceinline__ void write_range(const T* src, T* on, T* oc, int n,
+                                            float lo, float denom) {
+  constexpr int V = 16 / sizeof(T);
+  const int head = head_of(WHICH & 1 ? on : oc, n);
+  const int nv = (n - head) / V, tail0 = head + nv * V;
+  const int tid = threadIdx.x;
+  auto element = [&](int i) {
+    const float v = (to_f(src[i]) - lo) / denom;
+    if (WHICH & 1) on[i] = from_f<T>(v);
+    if (WHICH & 2) oc[i] = from_f<T>(clip01(1.f - v));
+  };
+  if (tid < head) element(tid);
+  if (tid < n - tail0) element(tail0 + tid);
+  const bool vec = mis16(src + head) == 0;
+  const T* sb = src + head;
+  T* obn = on + head;
+  T* obc = oc + head;
+#pragma unroll 4
+  for (int i = tid; i < nv; i += MM_THREADS) {
+    const T* p = sb + i * V;
+    float a[V], c[V];
+    if (vec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < V; ++j) a[j] = to_f(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) a[j] = to_f(p[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a[j] = (a[j] - lo) / denom;
+      c[j] = clip01(1.f - a[j]);
+    }
+    if (WHICH & 1) store<T, V>(obn + i * V, a);
+    if (WHICH & 2) store<T, V>(obc + i * V, c);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void write_share(const T* src, T* on, T* oc, int n,
+                                            float lo, float denom) {
+  if (mis16(on) == mis16(oc)) {
+    write_range<T, 3>(src, on, oc, n, lo, denom);
+  } else {  // paired_input's second half, b * m elements on
+    write_range<T, 1>(src, on, oc, n, lo, denom);
+    write_range<T, 2>(src, on, oc, n, lo, denom);
+  }
+}
+
+// grid (k, frames), cluster (k, 1, 1): CTA r of frame b owns elements
+// [r * share, (r + 1) * share) of it. Dynamic shared memory: resident
+// (streaming == 0) MM_HEADER + share * sizeof(T) + 16 bytes, streaming
+// MM_HEADER.
+template <typename T>
+__global__ void __launch_bounds__(MM_THREADS)
+minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
+               T* __restrict__ xc, long long m, long long share, int k,
+               int streaming, unsigned long long* __restrict__ trace) {
+  extern __shared__ __align__(128) unsigned char mm_smem[];
+  long long clk[4];
+  unsigned long long t0 = 0;
+  if (trace) {
+    t0 = global_ns();
+    clk[0] = clock64();
+  }
+#if MM_PUSH
+  const uint32_t xbar = smem_addr(mm_smem + MM_OFF_XBAR);
+  if (k > 1) {
+    if (threadIdx.x == 0) {
+      mbar_init(xbar, 1);
+      mbar_expect_tx(xbar, 8 * k);  // its one arrival: K pairs to come
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_arrive_relaxed();  // waited on before the first push
+  }
+#endif
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long start = (long long)blockIdx.x * share;
+  const int n = start >= m ? 0 : (int)(m - start < share ? m - start : share);
+  const size_t fo = (size_t)blockIdx.y * m + start;
+  const T* g = x + fo;
+  float* pairs = reinterpret_cast<float*>(mm_smem + MM_OFF_PAIRS);
+  float lo = INFINITY, hi = -INFINITY;
+  // the share on chip: element i at s[i], s placed as g mod 16
+  T* s = reinterpret_cast<T*>(mm_smem + MM_HEADER + mis16(g));
+  if (!streaming) {
+    const int head = head_of(g, n);
+    const int nv = (n - head) / V, tail0 = head + nv * V;
+    // the edges by element, beside the body
+    if (tid < head) {
+      const T v = g[tid];
+      s[tid] = v;
+      fold(to_f(v), lo, hi);
+    }
+    if (tid < n - tail0) {
+      const T v = g[tail0 + tid];
+      s[tail0 + tid] = v;
+      fold(to_f(v), lo, hi);
+    }
+    uint4* body = reinterpret_cast<uint4*>(s + head);
+#if MM_TMA
+    const int bytes = nv * 16;
+    const int nch = (bytes + MM_CH - 1) / MM_CH;
+    const uint32_t bars = smem_addr(mm_smem);
+    if (tid == 0) {
+      for (int c = 0; c < nch; ++c) mbar_init(bars + 8 * c, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int c = 0; c < nch; ++c) {
+        const int off = c * MM_CH;
+        const int nb = bytes - off < MM_CH ? bytes - off : MM_CH;
+        mbar_expect_tx(bars + 8 * c, (uint32_t)nb);
+        bulk_load(smem_addr(body) + (uint32_t)off,
+                  reinterpret_cast<const char*>(g + head) + off,
+                  (uint32_t)nb, bars + 8 * c);
+      }
+    }
+    __syncthreads();  // the barriers exist before anyone waits on them
+    for (int c = 0; c < nch; ++c) {
+      mbar_wait(bars + 8 * c, 0);
+      const int stop = (c + 1) * (MM_CH / 16);
+      const int end = nv < stop ? nv : stop;
+#pragma unroll 4
+      for (int i = c * (MM_CH / 16) + tid; i < end; i += MM_THREADS)
+        fold16<T>(body[i], lo, hi);
+    }
+#else
+    // 16-byte loads, MM_BATCH a thread in flight, copied and folded
+    const uint4* gb = reinterpret_cast<const uint4*>(g + head);
+    for (int i0 = tid; i0 < nv; i0 += MM_BATCH * MM_THREADS) {
+      uint4 v[MM_BATCH];
+#pragma unroll
+      for (int j = 0; j < MM_BATCH; ++j)
+        if (i0 + j * MM_THREADS < nv) v[j] = __ldg(gb + i0 + j * MM_THREADS);
+#pragma unroll
+      for (int j = 0; j < MM_BATCH; ++j)
+        if (i0 + j * MM_THREADS < nv) {
+          body[i0 + j * MM_THREADS] = v[j];
+          fold16<T>(v[j], lo, hi);
+        }
+    }
+#endif
+  } else {
+    fold_global<T>(g, n, lo, hi);
+  }
+  if (trace) clk[1] = clock64();
+  // the CTA's (lo, hi) in every thread; the __syncthreads also makes the
+  // edges' shared stores visible to every thread
+  warp_minmax(lo, hi);
+  if (lane == 0) {
+    pairs[2 * warp] = lo;
+    pairs[2 * warp + 1] = hi;
   }
   __syncthreads();
-  lo = s_lo[0];
-  hi = s_hi[0];
 #pragma unroll
-  for (int k = 1; k < THREADS / 32; ++k) {
-    lo = fminf(lo, s_lo[k]);
-    hi = fmaxf(hi, s_hi[k]);
+  for (int w = 0; w < MM_WARPS; ++w) {
+    lo = nan_min(lo, pairs[2 * w]);
+    hi = nan_max(hi, pairs[2 * w + 1]);
   }
-}
-
-// grid (nchunk, frames): min and max of each chunk of each frame
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-minmax_part(const T* __restrict__ x, long long m, float* __restrict__ pmin,
-            float* __restrict__ pmax) {
-  const T* xf = x + (size_t)blockIdx.y * m;
-  const long long start = (long long)blockIdx.x * MM_CHUNK;
-  const long long end = start + MM_CHUNK < m ? start + MM_CHUNK : m;
-  float lo = INFINITY, hi = -INFINITY;
-  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
-    const float v = to_f(xf[i]);
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
+  if (k > 1) {
+#if MM_PUSH
+    float* slots = reinterpret_cast<float*>(mm_smem + MM_OFF_CTA);
+    cluster_wait();  // every peer's barrier is initialised
+    if (tid < k)
+      push_pair(smem_addr(slots + 2 * cluster_rank()), xbar, tid, lo, hi);
+    mbar_wait(xbar, 0);
+    for (int r = 0; r < k; ++r) {
+      lo = nan_min(lo, slots[2 * r]);
+      hi = nan_max(hi, slots[2 * r + 1]);
+    }
+#else
+    float* mine = reinterpret_cast<float*>(mm_smem + MM_OFF_CTA);
+    if (tid == 0) {
+      mine[0] = lo;
+      mine[1] = hi;
+    }
+    cluster_arrive();
+    cluster_wait();  // every CTA's pair is published
+    lo = INFINITY;
+    hi = -INFINITY;
+    if (lane < k) {
+      const float2 p = peer_pair(smem_addr(mine), lane);
+      lo = p.x;
+      hi = p.y;
+    }
+    warp_minmax(lo, hi);
+    cluster_arrive();  // this CTA's reads of its peers are done
+#endif
   }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) {
-    pmin[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = lo;
-    pmax[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = hi;
-  }
-}
-
-// grid (nchunk, frames): fold the frame's partials, write the chunk
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-minmax_apply(const T* __restrict__ x, long long m,
-             const float* __restrict__ pmin, const float* __restrict__ pmax,
-             T* __restrict__ xn, T* __restrict__ xc) {
-  float lo = INFINITY, hi = -INFINITY;
-  const size_t row = (size_t)blockIdx.y * gridDim.x;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += THREADS) {
-    lo = fminf(lo, pmin[row + i]);
-    hi = fmaxf(hi, pmax[row + i]);
-  }
-  block_minmax(lo, hi);
+  if (trace) clk[2] = clock64();
   const float denom = hi - lo + MM_EPS;
-  const size_t fo = (size_t)blockIdx.y * m;
-  const long long start = (long long)blockIdx.x * MM_CHUNK;
-  const long long end = start + MM_CHUNK < m ? start + MM_CHUNK : m;
-  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
-    const float v = to_f(x[fo + i]);
-    const float n = (v - lo) / denom;
-    xn[fo + i] = from_f<T>(n);
-    xc[fo + i] = from_f<T>(fminf(fmaxf(1.f - n, 0.f), 1.f));
+  if (!streaming)
+    write_share<T>(s, xn + fo, xc + fo, n, lo, denom);
+  else
+    write_share<T>(g, xn + fo, xc + fo, n, lo, denom);
+  if (trace) {
+    clk[3] = clock64();
+    const unsigned long long t1 = global_ns();
+    if (tid == 0) {
+      unsigned long long* r =
+          trace + 8 * ((size_t)blockIdx.y * gridDim.x + blockIdx.x);
+      r[0] = sm_id();
+      r[1] = t0;
+      r[2] = t1;
+      for (int i = 0; i < 3; ++i) r[3 + i] = clk[i + 1] - clk[i];
+    }
   }
+#if !MM_PUSH
+  if (k > 1) cluster_wait();  // no peer reads this CTA's pair any more
+#endif
 }
 
 template <typename T, int V>
@@ -348,21 +712,126 @@ int launch_bwd(const void* lt, const void* ht, const void* ld, const void* hd,
   return (int)cudaGetLastError();
 }
 
+// A frame's share per CTA at k CTAs: a multiple of 64 elements, so shares
+// of aligned frames start aligned.
+long long mm_share(long long m, int k) {
+  return ((m + k - 1) / k + 63) / 64 * 64;
+}
+
+// Dynamic shared memory of a launch: the header, and a resident share.
+int mm_smem_bytes(long long m, int k, int es, int streaming) {
+  return MM_HEADER + (streaming ? 0 : (int)(mm_share(m, k) * es) + 16);
+}
+
+// The launch of minmax_cluster<T> on b frames at k CTAs a frame: its
+// cluster dimension set at run time.
 template <typename T>
-int launch_minmax(const void* x, float* part, void* xn, void* xc, int b,
-                  long long m, cudaStream_t st) {
-  const long long nchunk = (m + MM_CHUNK - 1) / MM_CHUNK;
-  const dim3 grid((unsigned)nchunk, (unsigned)b);
-  float* pmin = part;
-  float* pmax = part + (size_t)b * nchunk;
-  minmax_part<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), m, pmin,
-                                           pmax);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  minmax_apply<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), m, pmin,
-                                            pmax, static_cast<T*>(xn),
-                                            static_cast<T*>(xc));
-  return (int)cudaGetLastError();
+struct MinmaxLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  MinmaxLaunch(int b, int k, int smem, cudaStream_t st) {
+    cfg.gridDim = dim3((unsigned)k, (unsigned)b);
+    cfg.blockDim = dim3(MM_THREADS);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of k CTAs (smem bytes each) the card holds at once;
+// negative: -(CUDA error).
+template <typename T>
+int mm_clusters(int b, int k, int smem) {
+  MinmaxLaunch<T> l(b, k, smem, nullptr);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, (const void*)minmax_cluster<T>, &l.cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T>
+int setup_minmax(int b, long long m, int k_req, int spread_req, int* k_out,
+                 int* smem_out, int* streaming_out) {
+  const int es = (int)sizeof(T);
+  const void* fn = (const void*)minmax_cluster<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MM_HEADER + (int)MM_BUDGET + 16);
+  if (err != cudaSuccess) return -(int)err;
+  if ((err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+      cudaSuccess)
+    return -(int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return -(int)err;
+  auto fits = [&](int k) { return mm_share(m, k) * es <= MM_BUDGET; };
+  // with the batch's CTAs within the SM count, a CTA an SM: two on one SM
+  // would halve its share of the memory system
+  auto smem_of = [&](int k) {
+    const int need = mm_smem_bytes(m, k, es, !fits(k));
+    const bool spread = spread_req < 0 ? (long long)b * k <= sms
+                                       : spread_req > 0;
+    return spread && need < MM_SPREAD ? MM_SPREAD : need;
+  };
+  int k = k_req;
+  if (k_req <= 0) {
+    // the smallest K whose share stays on chip (else 16, streaming)
+    int kmin = 1;
+    while (kmin < MM_KMAX && !fits(kmin)) kmin *= 2;
+    // raised while the batch's CTAs stay within the SM count and each
+    // share keeps MM_MIN_SHARE bytes
+    int kmax = kmin;
+    while (kmax < MM_KMAX && (long long)b * 2 * kmax <= sms &&
+           mm_share(m, 2 * kmax) * es >= MM_MIN_SHARE)
+      kmax *= 2;
+    // of those, the fewest waves of co-resident clusters, then the
+    // largest K: clusters of 16 need 16 free SMs of one GPC, and a
+    // cluster that finds none waits for a whole wave
+    long long best = -1;
+    k = kmin;
+    for (int c = kmax; c >= kmin; c /= 2) {
+      const int n = mm_clusters<T>(b, c, smem_of(c));
+      if (n < 0) return n;
+      if (n == 0) continue;
+      const long long waves = (b + n - 1) / n;
+      if (best < 0 || waves < best) {
+        best = waves;
+        k = c;
+      }
+    }
+  } else if (k_req > MM_KMAX) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  if (mm_share(m, k) > INT32_MAX) return -(int)cudaErrorInvalidValue;
+  const int streaming = !fits(k);
+  const int smem = smem_of(k);
+  const int n = mm_clusters<T>(b, k, smem);
+  if (n < 0) return n;
+  if (n == 0) return -(int)cudaErrorInvalidConfiguration;
+  *k_out = k;
+  *smem_out = smem;
+  *streaming_out = streaming;
+  return n;
+}
+
+template <typename T>
+int launch_minmax(const void* x, void* xn, void* xc, int b, long long m,
+                  int k, int smem, int streaming,
+                  unsigned long long* trace, cudaStream_t st) {
+  MinmaxLaunch<T> l(b, k, smem, st);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &l.cfg, minmax_cluster<T>, static_cast<const T*>(x),
+      static_cast<T*>(xn), static_cast<T*>(xc), m, mm_share(m, k), k,
+      streaming, trace);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -415,17 +884,35 @@ extern "C" int onet_head_bwd(const void* lt, const void* ht, const void* ld,
                                     npix, c, st);
 }
 
-// Chunks per frame of m elements: part holds 2 * frames * chunks floats.
-extern "C" int onet_minmax_chunks(long long m) {
-  return (int)((m + MM_CHUNK - 1) / MM_CHUNK);
+// The min-max launch on the current device for b frames of m elements:
+// sets the kernel's attributes and writes its CTAs a frame (*k), dynamic
+// shared memory (*smem) and form (*streaming: 1 when a share does not fit
+// on chip). k_req > 0 forces K (1-16). Returns how many of its clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters); negative:
+// -(CUDA error). The wrapper calls it once per (device, b, m, dtype).
+extern "C" int onet_minmax_setup(int b, long long m, int bf16, int k_req,
+                                 int spread, int* k, int* smem,
+                                 int* streaming) {
+  if (b <= 0 || b > 65535 || m <= 0) return -(int)cudaErrorInvalidValue;
+  return bf16 ? setup_minmax<__nv_bfloat16>(b, m, k_req, spread, k, smem,
+                                            streaming)
+              : setup_minmax<float>(b, m, k_req, spread, k, smem, streaming);
 }
 
-// x [b][m] -> xn, xc [b][m] (both may lie in one buffer, apart).
-extern "C" int onet_minmax_complement(const void* x, float* part, void* xn,
-                                      void* xc, int b, long long m, int bf16,
+// x [b][m] -> xn, xc [b][m] (both may lie in one buffer, apart), one
+// launch; k, smem and streaming from onet_minmax_setup at (b, m, bf16).
+extern "C" int onet_minmax_complement(const void* x, void* xn, void* xc,
+                                      int b, long long m, int bf16, int k,
+                                      int smem, int streaming,
+                                      unsigned long long* trace,
                                       void* stream) {
   if (b <= 0 || m <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > MM_KMAX || b > 65535 || mm_share(m, k) > INT32_MAX ||
+      smem < mm_smem_bytes(m, k, bf16 ? 2 : 4, streaming))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_minmax<__nv_bfloat16>(x, part, xn, xc, b, m, st)
-              : launch_minmax<float>(x, part, xn, xc, b, m, st);
+  return bf16 ? launch_minmax<__nv_bfloat16>(x, xn, xc, b, m, k, smem,
+                                             streaming, trace, st)
+              : launch_minmax<float>(x, xn, xc, b, m, k, smem, streaming,
+                                     trace, st);
 }

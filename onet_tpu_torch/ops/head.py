@@ -28,8 +28,20 @@ kernel launches in ``.launches``: ``jsd_loss_fwd`` (replaces
 (``_head_bwd_kernel``, ``:89``) and ``minmax_complement``
 (``_minmax_comp_kernel``, ``:220``; ``paired_input`` launches the same
 kernel and counts there). The C functions' signatures are set once
-(``_lib``); the forward grid and the min-max chunk count are computed once
-per size.
+(``_lib``); the forward grid is computed once per size.
+
+The min-max kernel is one launch per call: each frame's K CTAs form a
+thread-block cluster, hold the frame in shared memory, agree on its min and
+max through distributed shared memory and write both outputs from the
+on-chip copy, so x is read from HBM once; a frame too large for K = 16
+shares takes the streaming form, which reads its share twice (the second
+time mostly from L2). ``onet_minmax_setup`` picks K and the form once per
+(device, B, H*W*C, dtype) (``minmax_plan``): the smallest K whose share
+fits, raised towards the SM count while a share keeps 32 KB, then the
+fewest waves of co-resident clusters, counted with one CTA an SM while the
+batch's CTAs fit the SMs (the H100 holds only 7 clusters of 16 that way,
+so the train batch's 8 frames take K = 8). Like the plain version and the
+JAX kernel, it propagates NaN (min, max and the clamp).
 
 Contract difference: the JAX forward falls back to XLA, and its backward
 raises, when no multiple-of-8 row block divides the pixel count. Here both
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -135,7 +148,9 @@ def _lib():
     """csrc/head.cu's C functions, their signatures set once."""
     lib = _build.load("head")
     sig = {"onet_head_fwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
-           "onet_minmax_chunks": ([ctypes.c_longlong], ctypes.c_int),
+           "onet_minmax_setup": (
+               [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
+               + [ctypes.POINTER(ctypes.c_int)] * 3, ctypes.c_int),
            "onet_head_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
                              + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                              ctypes.c_int),
@@ -143,9 +158,8 @@ def _lib():
                              + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                              ctypes.c_int),
            "onet_minmax_complement": (
-               [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                        ctypes.c_int, ctypes.c_void_p],
-               ctypes.c_int)}
+               [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2, ctypes.c_int)}
     fns = {}
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)
@@ -161,11 +175,44 @@ def _fwd_blocks(npix: int) -> int:
     return _lib()["onet_head_fwd_blocks"](npix)
 
 
+class MinmaxPlan(NamedTuple):
+    """How the min-max kernel runs on b frames of m elements: ``k`` CTAs
+    (one cluster) a frame, ``smem`` bytes of dynamic shared memory a CTA,
+    ``streaming`` when a frame's share does not stay on chip, and
+    ``clusters``, how many such clusters the card holds at once."""
+    k: int
+    smem: int
+    streaming: bool
+    clusters: int
+
+
 @functools.cache
-def _minmax_chunks(m: int) -> int:
-    """The min-max kernel's chunks per frame, once per frame size (all it
-    depends on)."""
-    return _lib()["onet_minmax_chunks"](m)
+def _minmax_setup(device_index: int, b: int, m: int, bf16: bool,
+                  k_req: int, spread: int) -> MinmaxPlan:
+    """``onet_minmax_setup`` on one card, once per (b, m, dtype): the
+    kernel's attributes and its launch (raises on a CUDA error, which is
+    then not cached)."""
+    k, smem, streaming = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        clusters = _lib()["onet_minmax_setup"](
+            b, m, int(bf16), k_req, spread, ctypes.byref(k), ctypes.byref(smem),
+            ctypes.byref(streaming))
+    if clusters < 0:
+        raise RuntimeError(f"min-max kernel setup failed: CUDA error "
+                           f"{-clusters}")
+    return MinmaxPlan(k.value, smem.value, bool(streaming.value), clusters)
+
+
+def minmax_plan(x, k: int = 0, spread: int = -1) -> MinmaxPlan:
+    """The launch ``minmax_complement`` makes on CUDA frames x [B, H, W, C]
+    (``k`` > 0 forces its CTAs a frame, 1-16; ``spread`` 1 / 0 forces /
+    forbids one CTA an SM, -1 leaves it to the set-up)."""
+    _check_frames(x)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"min-max kernel takes bf16 or f32, got {x.dtype}")
+    b = x.shape[0]
+    return _minmax_setup(x.device.index, b, x.numel() // b,
+                         x.dtype == torch.bfloat16, k, spread)
 
 
 def _raise_on(err, what):
@@ -241,22 +288,24 @@ def fused_jsd_loss(lt, ht, ld, hd):
     return _FusedJsd.apply(lt, ht, ld, hd)
 
 
-def _minmax_launch(x, xn, xc):
-    """Run the two-pass min-max kernel on CUDA x [B, H, W, C], writing the
-    normalized frames to xn and the complements to xc (contiguous views of
-    x's shape and dtype)."""
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"min-max kernel takes bf16 or f32, got {x.dtype}")
+def _minmax_launch(x, xn, xc, k: int = 0, spread: int = -1, trace=None):
+    """Run the min-max kernel, one launch, on CUDA x [B, H, W, C], writing
+    the normalized frames to xn and the complements to xc (contiguous views
+    of x's shape and dtype; ``k``, ``spread`` as in ``minmax_plan``). With
+    ``trace``, an int64 tensor of 8 per CTA, each CTA records its SM, its
+    start and end on the global timer (ns) and the SM clocks of its load,
+    exchange and write phases."""
     b = x.shape[0]
-    m = x.numel() // b if b else 0
-    nchunk = _minmax_chunks(m)
-    part = torch.empty((2, b, max(nchunk, 1)), dtype=torch.float32,
-                       device=x.device)
+    if b == 0 or x.numel() == 0:
+        return
+    plan = minmax_plan(x, k, spread)
     fn = _lib()["onet_minmax_complement"]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), part.data_ptr(), xn.data_ptr(), xc.data_ptr(),
-                 b, m, int(x.dtype == torch.bfloat16), stream)
+        err = fn(x.data_ptr(), xn.data_ptr(), xc.data_ptr(), b,
+                 x.numel() // b, int(x.dtype == torch.bfloat16), plan.k,
+                 plan.smem, int(plan.streaming),
+                 None if trace is None else trace.data_ptr(), stream)
     _raise_on(err, "min-max")
     minmax_complement.launches += 1
 

@@ -303,6 +303,28 @@ def test_minmax_kernel_matches_plain(dev, shape, dtype):
                           .to(dev, dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minmax_setup_forms(dev, dtype):
+    """The set-up's K and form: small frames one CTA, no cluster; the train
+    batch resident in clusters of 8, or of 16 where the card holds 8 of
+    them with one CTA an SM (an H100 holds 7); frames too large for 16
+    shares of 200 KB streaming."""
+    def plan(shape):
+        return THD.minmax_plan(torch.empty(shape, dtype=dtype, device=dev))
+
+    p = plan((2, 37, 53, 1))
+    assert (p.k, p.streaming) == (1, False)
+    p = plan((8, 512, 512, 1))
+    full = THD.minmax_plan(torch.empty((8, 512, 512, 1), dtype=dtype,
+                                       device=dev), k=16, spread=1)
+    assert (p.k, p.streaming) == (16 if full.clusters >= 8 else 8, False)
+    assert p.clusters >= 8
+    p = plan((1, 1024, 1500, 1))
+    assert (p.k, p.streaming) == (16, dtype == torch.float32)
+    p = plan((1, 2048, 1600, 1))
+    assert (p.k, p.streaming) == (16, True)
+
+
 @pytest.mark.parametrize("case", ["nan", "posinf", "neginf", "constant"])
 @pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 512, 512, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
