@@ -38,12 +38,14 @@
 //    Resident form (the share fits 200 KB of shared memory): the threads
 //    load the share's 16-byte aligned body with 16-byte loads, 8 in flight
 //    each, copy it to shared memory and fold min/max as it arrives; the
-//    unaligned head and tail come in as scalars. Each CTA then pushes its
+//    unaligned head and tail come in as scalars (TMA bulk copies loaded
+//    the share more slowly, PERF.md). Each CTA then pushes its
 //    (lo, hi) into a slot of every peer's shared memory (mapa + st.async,
 //    completing 8 bytes on that peer's mbarrier) and waits on its own
 //    mbarrier for the K pairs: one notification, no cluster barrier around
 //    the exchange and none at exit (a CTA passes its wait only after every
-//    push into it has landed). The mbarrier's initialisation is published
+//    push into it has landed); pulling the pairs between two cluster
+//    barriers took twice as long. The mbarrier's initialisation is published
 //    by a split cluster barrier whose wait comes after the load. xn = (x -
 //    lo) / (hi - lo + 1.1920929e-07) and clip(1 - xn, 0, 1) are then
 //    written from the on-chip copy with 16-byte stores, so x is read from
@@ -73,38 +75,20 @@ constexpr int PPW = 32 / G;                 // pixel groups per warp
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int FWD_MAX_BLOCKS = 1024;        // forward partials, at most
 constexpr float MM_EPS = 1.1920929e-07f;
-// Two alternatives of the min-max kernel stay buildable for the A/B of
-// onet_tpu_torch/runs/minmax_probe.py (nvcc -DMM_TMA=1, -DMM_PUSH=0): the
-// share brought on chip by TMA bulk copies (slower by 1.3-1.5 us than the
-// threads' own 16-byte loads at [8,512,512,1]), and the pairs pulled
-// through mapa + ld.shared::cluster between two cluster barriers (slower
-// by ~1 us than the st.async push).
-#ifndef MM_TMA
-#define MM_TMA 0
-#endif
-#ifndef MM_PUSH
-#define MM_PUSH 1
-#endif
 constexpr int MM_THREADS = 512;
 constexpr int MM_WARPS = MM_THREADS / 32;
 constexpr int MM_KMAX = 16;                 // CTAs a frame, at most
 constexpr long long MM_BUDGET = 200 * 1024; // a resident share, at most
 constexpr long long MM_MIN_SHARE = 32768;   // bytes a raised K leaves a CTA
 constexpr int MM_SPREAD = 116 * 1024;       // more than half an SM's 228 KB
-constexpr int MM_CH = 16384;                // bytes of one bulk copy (TMA)
 constexpr int MM_BATCH = 8;                 // 16-byte loads a thread issues
-constexpr int MM_MAX_CH = (MM_BUDGET + MM_CH - 1) / MM_CH;
-// shared memory: the bulk copies' mbarriers (TMA), the exchange's mbarrier,
-// the warps' (lo, hi), the K CTAs' pairs (pull: this CTA's own), then the
-// share (shifted by the share's address mod 16, so its aligned body lands
-// on 16-byte boundaries)
-constexpr int MM_OFF_XBAR = 112;
-constexpr int MM_OFF_PAIRS = 128;
-constexpr int MM_OFF_CTA = MM_OFF_PAIRS + MM_WARPS * 8;
+// shared memory: the exchange's mbarrier, the warps' (lo, hi), the K CTAs'
+// pairs, then the share (shifted by the share's address mod 16, so its
+// aligned body lands on 16-byte boundaries)
+constexpr int MM_OFF_PAIRS = 16;
+constexpr int MM_OFF_SLOTS = MM_OFF_PAIRS + MM_WARPS * 8;
 constexpr int MM_HEADER = 512;
-static_assert(MM_MAX_CH * 8 <= MM_OFF_PAIRS, "mbarriers");
-static_assert(MM_OFF_CTA + 8 * MM_KMAX <= MM_HEADER, "header");
-static_assert(MM_MAX_CH * 8 <= MM_OFF_XBAR, "xbar");
+static_assert(MM_OFF_SLOTS + 8 * MM_KMAX <= MM_HEADER, "header");
 static_assert(MM_HEADER + MM_BUDGET + 16 <= 232448, "227 KB a block");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -305,7 +289,7 @@ head_bwd(const T* __restrict__ lt, const T* __restrict__ ht,
   }
 }
 
-// ---- min-max: NaN-propagating folds, barriers, bulk copies, the cluster
+// ---- min-max: NaN-propagating folds, the cluster exchange
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   float r;
@@ -375,35 +359,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// memory to this CTA's shared address `dst`, signalling the barrier `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The (lo, hi) pair at shared address `addr` of CTA `rank` of the cluster.
-__device__ __forceinline__ float2 peer_pair(uint32_t addr, int rank) {
-  float2 v;
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %2, %3;\n"
-      "ld.shared::cluster.v2.f32 {%0, %1}, [ra];\n}\n"
-      : "=f"(v.x), "=f"(v.y)
-      : "r"(addr), "r"(rank)
-      : "memory");
-  return v;
 }
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -538,8 +495,7 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
     t0 = global_ns();
     clk[0] = clock64();
   }
-#if MM_PUSH
-  const uint32_t xbar = smem_addr(mm_smem + MM_OFF_XBAR);
+  const uint32_t xbar = smem_addr(mm_smem);
   if (k > 1) {
     if (threadIdx.x == 0) {
       mbar_init(xbar, 1);
@@ -548,7 +504,6 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
     }
     cluster_arrive_relaxed();  // waited on before the first push
   }
-#endif
   constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long start = (long long)blockIdx.x * share;
@@ -574,32 +529,6 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
       fold(to_f(v), lo, hi);
     }
     uint4* body = reinterpret_cast<uint4*>(s + head);
-#if MM_TMA
-    const int bytes = nv * 16;
-    const int nch = (bytes + MM_CH - 1) / MM_CH;
-    const uint32_t bars = smem_addr(mm_smem);
-    if (tid == 0) {
-      for (int c = 0; c < nch; ++c) mbar_init(bars + 8 * c, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int c = 0; c < nch; ++c) {
-        const int off = c * MM_CH;
-        const int nb = bytes - off < MM_CH ? bytes - off : MM_CH;
-        mbar_expect_tx(bars + 8 * c, (uint32_t)nb);
-        bulk_load(smem_addr(body) + (uint32_t)off,
-                  reinterpret_cast<const char*>(g + head) + off,
-                  (uint32_t)nb, bars + 8 * c);
-      }
-    }
-    __syncthreads();  // the barriers exist before anyone waits on them
-    for (int c = 0; c < nch; ++c) {
-      mbar_wait(bars + 8 * c, 0);
-      const int stop = (c + 1) * (MM_CH / 16);
-      const int end = nv < stop ? nv : stop;
-#pragma unroll 4
-      for (int i = c * (MM_CH / 16) + tid; i < end; i += MM_THREADS)
-        fold16<T>(body[i], lo, hi);
-    }
-#else
     // 16-byte loads, MM_BATCH a thread in flight, copied and folded
     const uint4* gb = reinterpret_cast<const uint4*>(g + head);
     for (int i0 = tid; i0 < nv; i0 += MM_BATCH * MM_THREADS) {
@@ -614,7 +543,6 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
           fold16<T>(v[j], lo, hi);
         }
     }
-#endif
   } else {
     fold_global<T>(g, n, lo, hi);
   }
@@ -633,8 +561,7 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
     hi = nan_max(hi, pairs[2 * w + 1]);
   }
   if (k > 1) {
-#if MM_PUSH
-    float* slots = reinterpret_cast<float*>(mm_smem + MM_OFF_CTA);
+    float* slots = reinterpret_cast<float*>(mm_smem + MM_OFF_SLOTS);
     cluster_wait();  // every peer's barrier is initialised
     if (tid < k)
       push_pair(smem_addr(slots + 2 * cluster_rank()), xbar, tid, lo, hi);
@@ -643,24 +570,6 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
       lo = nan_min(lo, slots[2 * r]);
       hi = nan_max(hi, slots[2 * r + 1]);
     }
-#else
-    float* mine = reinterpret_cast<float*>(mm_smem + MM_OFF_CTA);
-    if (tid == 0) {
-      mine[0] = lo;
-      mine[1] = hi;
-    }
-    cluster_arrive();
-    cluster_wait();  // every CTA's pair is published
-    lo = INFINITY;
-    hi = -INFINITY;
-    if (lane < k) {
-      const float2 p = peer_pair(smem_addr(mine), lane);
-      lo = p.x;
-      hi = p.y;
-    }
-    warp_minmax(lo, hi);
-    cluster_arrive();  // this CTA's reads of its peers are done
-#endif
   }
   if (trace) clk[2] = clock64();
   const float denom = hi - lo + MM_EPS;
@@ -680,9 +589,6 @@ minmax_cluster(const T* __restrict__ x, T* __restrict__ xn,
       for (int i = 0; i < 3; ++i) r[3 + i] = clk[i + 1] - clk[i];
     }
   }
-#if !MM_PUSH
-  if (k > 1) cluster_wait();  // no peer reads this CTA's pair any more
-#endif
 }
 
 template <typename T, int V>
@@ -755,8 +661,8 @@ int mm_clusters(int b, int k, int smem) {
 }
 
 template <typename T>
-int setup_minmax(int b, long long m, int k_req, int spread_req, int* k_out,
-                 int* smem_out, int* streaming_out) {
+int setup_minmax(int b, long long m, int k_req, int* k_out, int* smem_out,
+                 int* streaming_out) {
   const int es = (int)sizeof(T);
   const void* fn = (const void*)minmax_cluster<T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -777,9 +683,7 @@ int setup_minmax(int b, long long m, int k_req, int spread_req, int* k_out,
   // would halve its share of the memory system
   auto smem_of = [&](int k) {
     const int need = mm_smem_bytes(m, k, es, !fits(k));
-    const bool spread = spread_req < 0 ? (long long)b * k <= sms
-                                       : spread_req > 0;
-    return spread && need < MM_SPREAD ? MM_SPREAD : need;
+    return (long long)b * k <= sms && need < MM_SPREAD ? MM_SPREAD : need;
   };
   int k = k_req;
   if (k_req <= 0) {
@@ -891,12 +795,10 @@ extern "C" int onet_head_bwd(const void* lt, const void* ht, const void* ld,
 // the card holds at once (cudaOccupancyMaxActiveClusters); negative:
 // -(CUDA error). The wrapper calls it once per (device, b, m, dtype).
 extern "C" int onet_minmax_setup(int b, long long m, int bf16, int k_req,
-                                 int spread, int* k, int* smem,
-                                 int* streaming) {
+                                 int* k, int* smem, int* streaming) {
   if (b <= 0 || b > 65535 || m <= 0) return -(int)cudaErrorInvalidValue;
-  return bf16 ? setup_minmax<__nv_bfloat16>(b, m, k_req, spread, k, smem,
-                                            streaming)
-              : setup_minmax<float>(b, m, k_req, spread, k, smem, streaming);
+  return bf16 ? setup_minmax<__nv_bfloat16>(b, m, k_req, k, smem, streaming)
+              : setup_minmax<float>(b, m, k_req, k, smem, streaming);
 }
 
 // x [b][m] -> xn, xc [b][m] (both may lie in one buffer, apart), one

@@ -149,7 +149,7 @@ def _lib():
     lib = _build.load("head")
     sig = {"onet_head_fwd_blocks": ([ctypes.c_longlong], ctypes.c_int),
            "onet_minmax_setup": (
-               [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
+               [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                + [ctypes.POINTER(ctypes.c_int)] * 3, ctypes.c_int),
            "onet_head_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
                              + [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -188,14 +188,14 @@ class MinmaxPlan(NamedTuple):
 
 @functools.cache
 def _minmax_setup(device_index: int, b: int, m: int, bf16: bool,
-                  k_req: int, spread: int) -> MinmaxPlan:
+                  k_req: int) -> MinmaxPlan:
     """``onet_minmax_setup`` on one card, once per (b, m, dtype): the
     kernel's attributes and its launch (raises on a CUDA error, which is
     then not cached)."""
     k, smem, streaming = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
         clusters = _lib()["onet_minmax_setup"](
-            b, m, int(bf16), k_req, spread, ctypes.byref(k), ctypes.byref(smem),
+            b, m, int(bf16), k_req, ctypes.byref(k), ctypes.byref(smem),
             ctypes.byref(streaming))
     if clusters < 0:
         raise RuntimeError(f"min-max kernel setup failed: CUDA error "
@@ -203,16 +203,15 @@ def _minmax_setup(device_index: int, b: int, m: int, bf16: bool,
     return MinmaxPlan(k.value, smem.value, bool(streaming.value), clusters)
 
 
-def minmax_plan(x, k: int = 0, spread: int = -1) -> MinmaxPlan:
+def minmax_plan(x, k: int = 0) -> MinmaxPlan:
     """The launch ``minmax_complement`` makes on CUDA frames x [B, H, W, C]
-    (``k`` > 0 forces its CTAs a frame, 1-16; ``spread`` 1 / 0 forces /
-    forbids one CTA an SM, -1 leaves it to the set-up)."""
+    (``k`` > 0 forces its CTAs a frame, 1-16)."""
     _check_frames(x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"min-max kernel takes bf16 or f32, got {x.dtype}")
     b = x.shape[0]
     return _minmax_setup(x.device.index, b, x.numel() // b,
-                         x.dtype == torch.bfloat16, k, spread)
+                         x.dtype == torch.bfloat16, k)
 
 
 def _raise_on(err, what):
@@ -288,17 +287,17 @@ def fused_jsd_loss(lt, ht, ld, hd):
     return _FusedJsd.apply(lt, ht, ld, hd)
 
 
-def _minmax_launch(x, xn, xc, k: int = 0, spread: int = -1, trace=None):
+def _minmax_launch(x, xn, xc, k: int = 0, trace=None):
     """Run the min-max kernel, one launch, on CUDA x [B, H, W, C], writing
     the normalized frames to xn and the complements to xc (contiguous views
-    of x's shape and dtype; ``k``, ``spread`` as in ``minmax_plan``). With
+    of x's shape and dtype; ``k`` as in ``minmax_plan``). With
     ``trace``, an int64 tensor of 8 per CTA, each CTA records its SM, its
     start and end on the global timer (ns) and the SM clocks of its load,
     exchange and write phases."""
     b = x.shape[0]
     if b == 0 or x.numel() == 0:
         return
-    plan = minmax_plan(x, k, spread)
+    plan = minmax_plan(x, k)
     fn = _lib()["onet_minmax_complement"]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -26,20 +26,15 @@ Where the tree has ``minmax_plan`` (the one-launch kernel), also:
 * the set-up's plan and the kernel at K = 4, 8 and 16 CTAs a frame
   (outputs allocated once), each with the clusters the card holds at once;
 * one traced call of the set-up's plan: the SMs its CTAs ran on and the
-  median SM clocks of their load, exchange and write phases;
-* the two alternatives ``csrc/head.cu`` keeps buildable, built here with
-  nvcc: TMA bulk copies for the load (``-DMM_TMA=1``) and the pairs pulled
-  between two cluster barriers (``-DMM_PUSH=0``).
+  median SM clocks of their load, exchange and write phases.
 
 Prints one JSON line.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import subprocess
 
 import torch
 
@@ -48,7 +43,6 @@ from onet_tpu_torch.runs.dw_probe import (PEAK_BYTES_S, card_line, cold_ms,
 
 SHAPE = (8, 512, 512, 1)
 SWEEP = (4, 8, 16)
-VARIANTS = {"tma_load": "-DMM_TMA=1", "pull_exchange": "-DMM_PUSH=0"}
 
 
 def times(fn, kernels) -> dict:
@@ -99,41 +93,6 @@ def run_dtype(HD, dtype, kernels: int) -> dict:
     return out
 
 
-def run_variants(_build, HD) -> dict:
-    """The kernel built with each of VARIANTS' defines, at the set-up's
-    plan, f32 and bf16."""
-    src = os.path.join(_build.CSRC, "head.cu")
-    procs = {}
-    for name, define in VARIANTS.items():
-        lib = os.path.join(_build.BUILD, f"libhead-{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, define, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    out = {}
-    default = _build.load("head")
-    try:
-        for name, (lib, proc) in procs.items():
-            log = proc.communicate()[0].decode(errors="replace")
-            if proc.returncode:
-                raise RuntimeError(f"nvcc {name} failed:\n{log}")
-            _build._LIBS["head"] = ctypes.CDLL(lib)
-            HD._lib.cache_clear()
-            HD._minmax_setup.cache_clear()
-            for dtype in (torch.float32, torch.bfloat16):
-                x = frames(dtype)
-                rn, rc = HD.minmax_complement_plain(x)
-                xn, xc = HD.minmax_complement(x)
-                out[f"{name}_{str(dtype)[6:]}"] = {
-                    "equal": torch.equal(xn, rn) and torch.equal(xc, rc),
-                    "trace": traced(HD, x),
-                    **times(lambda: HD.minmax_complement(x), 1)}
-    finally:
-        _build._LIBS["head"] = default
-        HD._lib.cache_clear()
-        HD._minmax_setup.cache_clear()
-    return out
-
-
 def main() -> None:
     from onet_tpu_torch.ops import _build
     from onet_tpu_torch.ops import head as HD
@@ -145,8 +104,6 @@ def main() -> None:
            "launches_per_call": kernels}
     for dtype in (torch.float32, torch.bfloat16):
         out[str(dtype)[6:]] = run_dtype(HD, dtype, kernels)
-    if hasattr(HD, "minmax_plan"):
-        out["variants"] = run_variants(_build, HD)
     print(json.dumps(out), flush=True)
 
 

@@ -316,7 +316,7 @@ def test_minmax_setup_forms(dev, dtype):
     assert (p.k, p.streaming) == (1, False)
     p = plan((8, 512, 512, 1))
     full = THD.minmax_plan(torch.empty((8, 512, 512, 1), dtype=dtype,
-                                       device=dev), k=16, spread=1)
+                                       device=dev), k=16)
     assert (p.k, p.streaming) == (16 if full.clusters >= 8 else 8, False)
     assert p.clusters >= 8
     p = plan((1, 1024, 1500, 1))
