@@ -1127,7 +1127,7 @@ def head_minmax_bd(dev) -> list:
         eager_ms=cuda_ms(lambda: complement(minmax_per_frame(x))),
         eager_call="minmax_per_frame + complement")
     # its one launch; with host activity traced too, the profiler lost this
-    # call's record here in every try (in a fresh process it keeps it)
+    # call's record here in every try
     breakdown(lambda: HD.minmax_complement(x), "minmax_complement "
               "[8,512,512,1] f32", top=4, kernels=1, host=False)
     n_bd = bd_in[0].shape[0]

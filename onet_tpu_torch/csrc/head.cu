@@ -81,7 +81,7 @@ constexpr int MM_KMAX = 16;                 // CTAs a frame, at most
 constexpr long long MM_BUDGET = 200 * 1024; // a resident share, at most
 constexpr long long MM_MIN_SHARE = 32768;   // bytes a raised K leaves a CTA
 constexpr int MM_SPREAD = 116 * 1024;       // more than half an SM's 228 KB
-constexpr int MM_BATCH = 8;                 // 16-byte loads a thread issues
+constexpr int MM_BATCH = 8;                 // 16-byte loads in flight a thread
 // shared memory: the exchange's mbarrier, the warps' (lo, hi), the K CTAs'
 // pairs, then the share (shifted by the share's address mod 16, so its
 // aligned body lands on 16-byte boundaries)
