@@ -56,6 +56,18 @@ Phases, each fatal on failure:
      ragged batch (N=10) against its plain version on the step's own
      operands, and the step's loss against the stacked step's; epoch and
      step times and the driver's host share.
+  7. sweeps, detectors, transfer (``detection_workload``), on phase 6's
+     checkpoints at full width, bf16, pair-packed, each step's launches
+     counted and held to its eval forwards x 3 (plus its train steps'):
+     the per-PSNR checkpoint sweep (levels 0-10 x 150 frames at 224^2,
+     batch 10), the FAR-budget detector (one 150-frame forward per level,
+     N=300, and roc_points on 7,526,400 pixels; against its CPU run), NAU
+     rain transfer on 10 synthetic 200^2 frames at batch 5 beside the
+     CA-CFAR baseline (against its CPU run), train_by_snr (levels 0 and
+     10, 1 epoch each) and the two-stage Onet; the four figures' inputs
+     under runs/chip_smoke_phase7 (``render_figures`` draws them where
+     matplotlib is installed); every conv launch of one eval forward at
+     N=10 (200^2), N=20 and N=300 (224^2) against its plain version.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -65,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1281,10 +1294,28 @@ def sim_data(dev) -> tuple:
     return data, rayleigh_x
 
 
+def launch_counts(TC) -> dict:
+    """The pair-packed kernels' launch counters: conv3x3_wp, conv3x3_wp2,
+    conv3x3_wp_dw, and the two convs' launches with the stats epilogue."""
+    return {"conv3x3_wp": TC.conv3x3_wp_raw.launches,
+            "conv3x3_wp2": TC.conv3x3_wp2_raw.launches,
+            "conv3x3_wp_dw": TC.conv3x3_wp_dw.launches,
+            "conv3x3_wp+stats": TC.conv3x3_wp_raw.stats_launches,
+            "conv3x3_wp2+stats": TC.conv3x3_wp2_raw.stats_launches}
+
+
+def reset_counts(TC) -> None:
+    for f in (TC.conv3x3_wp_raw, TC.conv3x3_wp2_raw, TC.conv3x3_wp_dw):
+        f.launches = 0
+    TC.conv3x3_wp_raw.stats_launches = 0
+    TC.conv3x3_wp2_raw.stats_launches = 0
+
+
 def drive(TC, res) -> dict:
     """Phase 6, steps 2 and 3: train() for SIM_EPOCHS epochs, the launches
     of the pair-packed kernels counted around the call (the eval calls'
-    apart) and asserted; then train(resume=True) one epoch further.
+    apart) and asserted; then train(resume=True) one epoch further. The
+    checkpoint directory (res["out_root"]) is left for phase 7.
     Returns the epoch marks (perf_counter seconds) read around the
     driver's own calls; the driver itself is not changed for the
     measurement."""
@@ -1298,28 +1329,18 @@ def drive(TC, res) -> dict:
     from onet_tpu_torch.models.unet import tree_leaves, tree_map
     from onet_tpu_torch.train import simclutter as SC
 
-    counted = {"conv3x3_wp": TC.conv3x3_wp_raw,
-               "conv3x3_wp2": TC.conv3x3_wp2_raw,
-               "conv3x3_wp_dw": TC.conv3x3_wp_dw}
-
-    def counts():
-        c = {k: f.launches for k, f in counted.items()}
-        c["conv3x3_wp+stats"] = TC.conv3x3_wp_raw.stats_launches
-        c["conv3x3_wp2+stats"] = TC.conv3x3_wp2_raw.stats_launches
-        return c
-
     marks = {"train": [], "eval": [], "eval_end": []}
-    eval_launches = {k: 0 for k in counts()}
+    eval_launches = {k: 0 for k in launch_counts(TC)}
     real_eval, real_iter = SC.evaluate, SC.batch_iterator
 
     def timed_eval(*a, **kw):
         torch.cuda.synchronize()
         marks["eval"].append(time.perf_counter())
-        before = counts()
+        before = launch_counts(TC)
         out = real_eval(*a, **kw)
         torch.cuda.synchronize()
         marks["eval_end"].append(time.perf_counter())
-        for k, v in counts().items():
+        for k, v in launch_counts(TC).items():
             eval_launches[k] += v - before[k]
         return out
 
@@ -1336,15 +1357,12 @@ def drive(TC, res) -> dict:
                base_channels=SIM_BASE)
     SC.evaluate, SC.batch_iterator = timed_eval, marked_iter
     try:
-        for f in counted.values():
-            f.launches = 0
-        TC.conv3x3_wp_raw.stats_launches = 0
-        TC.conv3x3_wp2_raw.stats_launches = 0
+        reset_counts(TC)
         t0 = time.perf_counter()
         params, _, hist = SC.train(SC.SimclutterConfig(
             epoch_nums=SIM_EPOCHS, **cfg), policy=BF16_COMPUTE, log=False)
         train_s = time.perf_counter() - t0
-        total = counts()
+        total = launch_counts(TC)
     finally:
         SC.evaluate, SC.batch_iterator = real_eval, real_iter
     n_train = res["n_train"]
@@ -1402,9 +1420,8 @@ def drive(TC, res) -> dict:
             len(hist2["loss"]) != 1 or not same(loaded["params"],
                                                 file_params):
         raise AssertionError("resume did not continue from the saved epoch")
-    shutil.rmtree(out_root)
     res.update(train_s=train_s, resume_s=resume_s, launches=launches,
-               eval_launches=eval_launches)
+               eval_launches=eval_launches, out_root=out_root)
     return marks
 
 
@@ -1434,14 +1451,21 @@ def step_operands(TC, run) -> list:
     return ops
 
 
-def check_step_kernels(TC, ops, tag) -> dict:
-    """Every captured launch of one train step against its plain version
-    on the same operands, at conv_err's and dw_err's tolerances (the
-    stats, dw within SUM_REL of their largest magnitude; y within one bf16
-    rounding); raises on a disagreement. The step must have made
-    PER_STEP's launches: its forward convs carry the stats epilogue, the
-    others are the input-gradient (dx) convs. Returns the largest absolute
-    error of each kind."""
+STEP_LAUNCHES = {"conv3x3_wp+stats": 2, "conv3x3_wp+dx": 4,
+                 "conv3x3_wp2+stats": 1,
+                 "conv3x3_wp_dw": PER_STEP["conv3x3_wp_dw"]}
+EVAL_LAUNCHES = {"conv3x3_wp+stats": 2, "conv3x3_wp2+stats": 1}
+
+
+def check_step_kernels(TC, ops, tag, want=STEP_LAUNCHES) -> dict:
+    """Every captured launch of one train step (or, with ``want`` =
+    EVAL_LAUNCHES, one eval forward) against its plain version on the same
+    operands, at conv_err's and dw_err's tolerances (the stats, dw within
+    SUM_REL of their largest magnitude; y within one bf16 rounding);
+    raises on a disagreement. The call must have made ``want``'s launches:
+    the forward convs carry the stats epilogue, the others are the
+    input-gradient (dx) convs. Returns the largest absolute error of each
+    kind."""
     errs, seen = {}, {}
     for op in ops:
         if op[0] == "dw":
@@ -1458,8 +1482,6 @@ def check_step_kernels(TC, ops, tag) -> dict:
                            bias_relu=bias_relu, stats=stats)
         errs[key] = max(errs.get(key, 0.0), err)
         seen[key] = seen.get(key, 0) + 1
-    want = {"conv3x3_wp+stats": 2, "conv3x3_wp+dx": 4, "conv3x3_wp2+stats": 1,
-            "conv3x3_wp_dw": PER_STEP["conv3x3_wp_dw"]}
     if seen != want:
         raise AssertionError(f"{tag}: launches {seen}, expected {want}")
     return errs
@@ -1567,12 +1589,414 @@ def simclutter_workload(TC, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: per-PSNR sweeps, the ROC and CA-CFAR detectors, NAU transfer and
+# the two-stage Onet
+# ---------------------------------------------------------------------------
+
+DET_LEVELS = tuple(range(0, 11))  # per_snr_datasets' levels
+DET_FRAMES = 150                  # its frames_per_level (224^2 crops)
+DET_BATCH = 10                    # verify_checkpoint_dir's and test_by_snr's
+FAR_BUDGETS = (1e-3, 1e-2, 5e-2, 1e-1)
+NAU_FRAMES = 10                   # synthesize_nau_rain's n
+NAU_SIZE = 200                    # its size, the radar frames' 200x200
+NAU_BATCH = 5                     # test_naurain's batch (the naurain config)
+CFAR_KVAL = 2.0
+STAGE_LEVELS = (0, 10)            # stage 1 trained at 0 dB, stage 2 at 10
+STAGE_EPOCHS = 1                  # of SimclutterConfig's 301: the one cut
+FIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "runs", "chip_smoke_phase7")
+FIGURES = ("nau_rain_transfer", "nau_method_comparison",
+           *(f"two_stage_level{lvl:02d}" for lvl in STAGE_LEVELS))
+
+
+def save_figure_inputs(name: str, fn: str, **arrays) -> None:
+    """The arguments of report/curves.py's ``fn`` for figure ``name``,
+    saved to FIG_DIR/<name>.npz. The card's host has no matplotlib, so
+    phase 7 keeps what each figure shows and ``render_figures`` draws them
+    where matplotlib is installed."""
+    np.savez(os.path.join(FIG_DIR, name + ".npz"), fn=fn, **arrays)
+
+
+def render_figures(fig_dir: str = FIG_DIR) -> list:
+    """Draw phase 7's figures (<name>.png beside each <name>.npz) with
+    report/curves.py:
+
+        python3 -c "import chip_smoke; chip_smoke.render_figures()"
+    """
+    import glob
+
+    from onet_tpu_torch.report import curves
+
+    out = []
+    for npz in sorted(glob.glob(os.path.join(fig_dir, "*.npz"))):
+        with np.load(npz) as z:
+            kw = {k: z[k] for k in z.files}
+        fn = str(kw.pop("fn"))
+        if fn == "save_method_comparison_grid":
+            names = kw.pop("method_names").tolist()
+            kw["methods"] = dict(zip(names, kw.pop("method_preds")))
+            kw["fars"] = dict(zip(names, kw.pop("method_fars").tolist()))
+        for k in ("names", "title"):
+            if k in kw:
+                kw[k] = kw[k].tolist()
+        out.append(getattr(curves, fn)(npz[:-4] + ".png", **kw))
+    return out
+
+
+def expect(forwards: int, steps: int = 0) -> dict:
+    """The launches of ``forwards`` eval forwards (3 stats-epilogue convs
+    each) and ``steps`` train steps (PER_STEP each) on the pair-packed
+    path, as launch_counts reports them."""
+    return {"conv3x3_wp": 2 * forwards + PER_STEP["conv3x3_wp"] * steps,
+            "conv3x3_wp2": forwards + PER_STEP["conv3x3_wp2"] * steps,
+            "conv3x3_wp_dw": PER_STEP["conv3x3_wp_dw"] * steps,
+            "conv3x3_wp+stats": 2 * forwards + 2 * steps,
+            "conv3x3_wp2+stats": forwards + steps}
+
+
+def run_step(TC, res, name, fn, frames, forwards, steps=0):
+    """Run phase 7's step ``name``: counts from 0, wall time around it
+    (synchronized), frames/s; the launches must equal ``expect(forwards,
+    steps)``. Returns fn's result."""
+    torch.cuda.synchronize()
+    reset_counts(TC)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts(TC)
+    want = expect(forwards, steps)
+    res["steps"][name] = dict(wall_s=wall, frames=frames,
+                              frames_per_s=frames / wall, launches=got)
+    log(f"[detect] {name}: {wall:.3f} s, {frames} frames, "
+        f"{frames / wall:.1f} frames/s; launches {got}")
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return out
+
+
+def check_metrics(tag, m: dict) -> None:
+    bad = {k: v for k, v in m.items() if not 0.0 <= v <= 1.0}
+    if bad:
+        raise AssertionError(f"{tag}: metrics outside [0, 1]: {bad}")
+
+
+def roc_card_vs_cpu(score, labels, tag) -> dict:
+    """roc_points on the card against its run on the CPU on the same
+    inputs: thresholds within 2 float32 ulps (only float64 log/pow may
+    round apart), far and dr equal wherever no score lies within 2 ulps of
+    a threshold. Returns the counts."""
+    from onet_tpu_torch.metrics.roc import roc_points
+
+    got = [t.cpu() for t in roc_points(score, labels, 512)]
+    ref = roc_points(score.cpu(), labels.cpu(), 512)
+    bits = lambda t: t.view(torch.int32).long()  # noqa: E731
+    ulps = (bits(got[2]) - bits(ref[2])).abs()
+    srt = torch.sort(score.reshape(-1).float().cpu()).values
+    i = torch.searchsorted(srt, ref[2]).clamp(1, srt.numel() - 1)
+    near = torch.minimum((bits(srt[i]) - bits(ref[2])).abs(),
+                         (bits(srt[i - 1]) - bits(ref[2])).abs()) <= 2
+    same = all(torch.equal(g[~near], r[~near])
+               for g, r in zip(got[:2], ref[:2]))
+    out = dict(max_ulps=int(ulps.max()), near=int(near.sum()))
+    log(f"[check] roc_points {tag}, card vs CPU: thresholds within "
+        f"{out['max_ulps']} ulps, far/dr {'equal' if same else 'DIFFER'} "
+        f"({out['near']} thresholds within 2 ulps of a score)")
+    if out["max_ulps"] > 2 or not same:
+        raise AssertionError(f"roc_points {tag}: card and CPU disagree")
+    return out
+
+
+def cfar_card_vs_cpu(imgs, det) -> dict:
+    """cfar_seg_batch on the card against its run on the CPU on the same
+    frames: masks equal except at pixels within 1e-5 * kval * bg of the
+    decision (bg in float64), where the two cumsums' orders may differ."""
+    from onet_tpu_torch.metrics import cfar as CF
+
+    ref = CF.cfar_seg_batch(imgs.cpu(), CFAR_KVAL)
+    x = imgs[..., 0].double().cpu()
+    ii = CF._integral(x)
+    (rs, rc), (gs, gc) = (CF._window_sums(ii, x.shape[1], x.shape[2], r)
+                          for r in (16, 8))
+    bg = (rs - gs) / torch.clamp_min(rc - gc, 1)
+    near = (x - CFAR_KVAL * bg).abs() <= 1e-5 * CFAR_KVAL * bg
+    differ = det.cpu() != ref
+    out = dict(differ=int(differ.sum()), near=int(near.sum()))
+    log(f"[check] cfar_seg_batch {tuple(imgs.shape)}, card vs CPU: "
+        f"{out['differ']} pixels differ, {out['near']} within rounding of "
+        "the decision")
+    if bool((differ & ~near).any()):
+        raise AssertionError("cfar_seg_batch: card and CPU disagree")
+    return out
+
+
+def detection_workload(TC, dev, ckpt_dir: str) -> dict:
+    """Phase 7: Queue A item 2 at full width (base 64, bf16, pair-packed),
+    each step's launches counted from 0 and asserted:
+
+    1. per_snr_datasets (levels 0-10 x 150 frames, 400^2 -> 224^2, on the
+       card); verify_checkpoint_dir on phase 6's checkpoints at batch 10:
+       the per-level acc/mIoU/dr/far/tIoU and the ave row.
+    2. threshold_sweep_by_snr at the FAR budgets (one forward of 150
+       frames, N=300 packed, per level): achieved far and dr per level and
+       budget, peak device memory, the ROC's time per level; roc_points on
+       the card against its CPU run on the last level.
+    3. synthesize_nau_rain (10 frames of 200^2) on the card; test_naurain
+       at batch 5 with phase 6's model and its figure; cfar_seg_batch
+       (kval 2.0) on the same frames, its metrics, its CPU run; the method
+       comparison figure.
+    4. train_by_snr for levels 0 and 10, 1 epoch each (the one cut);
+       verify_two_stage (stage 1 the level-0 model, stage 2 the level-10
+       one) over levels 0 and 10; the two-stage eval on one batch of
+       each. The four figures' inputs (NAU transfer, method comparison,
+       two-stage at levels 0 and 10) go to FIG_DIR as .npz.
+    5. Every conv launch of one eval forward at each new shape (N=10 at
+       200^2, N=20 and N=300 at 224^2) against its plain version.
+    Times: each step's wall time and frames/s."""
+    import glob
+    import tempfile
+
+    from onet_tpu_torch.core.checkpoint import load_onet_npz
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.core.prng import RngStream
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.data.nau import synthesize_nau_rain
+    from onet_tpu_torch.metrics.cfar import cfar_seg_batch
+    from onet_tpu_torch.metrics.segmentation import (
+        evaluate_binary_segmentation)
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.train import nau as TN
+    from onet_tpu_torch.train import simclutter as SC
+    from onet_tpu_torch.train import sweeps as SW
+    from onet_tpu_torch.train import two_stage as TS
+    from onet_tpu_torch.train.steps import make_eval_step
+
+    pol = BF16_COMPUTE
+    res = {"steps": {}, "t_start": time.time()}
+    os.makedirs(FIG_DIR, exist_ok=True)
+    files = sorted(glob.glob(os.path.join(ckpt_dir, "*.npz")))
+    params, bn, _ = load_onet_npz(files[-1])      # the resumed run's
+    host = TS.to_host
+
+    # step 1: the checkpoint sweep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = SW.per_snr_datasets(SEED, levels=DET_LEVELS,
+                               frames_per_level=DET_FRAMES, crop=SIM_CROP)
+    torch.cuda.synchronize()
+    res["datasets_s"] = time.perf_counter() - t0
+    n_frames = sum(len(ds) for ds in data.values())
+    log(f"[detect] per_snr_datasets: {n_frames} frames in "
+        f"{res['datasets_s']:.3f} s")
+    batches = sum(num_batches(len(ds), DET_BATCH) for ds in data.values())
+    rep = run_step(
+        TC, res, "checkpoint_sweep", lambda: SW.verify_checkpoint_dir(
+            ckpt_dir, datasets_by_psnr=data, batch_sz=DET_BATCH, policy=pol),
+        len(files) * n_frames, len(files) * batches)
+    if list(rep) != [os.path.basename(f) for f in files]:
+        raise AssertionError(f"swept {list(rep)}, files {files}")
+    for f, r in rep.items():
+        log(f"[detect] {f} (epoch {r['epoch']}, {r['arch']}): level acc "
+            "miou dr far tiou")
+        for lvl, m in r["per_snr"].items():
+            check_metrics(f"{f} level {lvl}", m)
+            log(f"[detect]   {lvl:>3}: " + " ".join(
+                f"{m[k]:.4f}" for k in TS.KEYS))
+    res["checkpoint_sweep"] = {f: {"epoch": r["epoch"],
+                                   "ave": r["per_snr"]["ave"]}
+                               for f, r in rep.items()}
+
+    # step 2: the FAR-budget detector, one forward per level
+    roc_ms, last = [], {}
+    real_roc = SW.dr_at_far
+
+    def timed_roc(score, labels, budgets):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_roc(score, labels, budgets)       # ends in a host read
+        roc_ms.append((time.perf_counter() - t) * 1e3)
+        last.update(score=score, labels=labels)
+        return out
+
+    SW.dr_at_far = timed_roc
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        sweep = run_step(TC, res, "threshold_sweep",
+                         lambda: SW.threshold_sweep_by_snr(
+                             params, bn, data, far_budgets=FAR_BUDGETS,
+                             policy=pol), n_frames, len(data))
+    finally:
+        SW.dr_at_far = real_roc
+    res["threshold_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["roc_ms"] = roc_ms
+    log(f"[detect] FAR-budget detection (achieved far / dr per budget "
+        f"{FAR_BUDGETS}); argmax dr / far; peak "
+        f"{res['threshold_peak_gib']:.2f} GiB; ROC of {SIM_CROP}^2 x "
+        f"{DET_FRAMES} = {DET_FRAMES * SIM_CROP ** 2} pixels per level: "
+        f"{np.median(roc_ms):.2f} ms median ({min(roc_ms):.2f}-"
+        f"{max(roc_ms):.2f})")
+    for lvl, r in sweep.items():
+        th = r["thresh"]
+        log(f"[detect]   {lvl:>3}: " + "  ".join(
+            f"{th[b]['far']:.2e}/{th[b]['dr']:.4f}" for b in FAR_BUDGETS)
+            + f"  argmax {r['argmax']['dr']:.4f}/{r['argmax']['far']:.4f}")
+        drs = [th[b]["dr"] for b in FAR_BUDGETS if not np.isnan(th[b]["dr"])]
+        if any(th[b]["far"] > b for b in FAR_BUDGETS) or \
+                drs != sorted(drs) or not drs:
+            raise AssertionError(f"level {lvl}: FAR budgets broken: {r}")
+    res["threshold_sweep"] = sweep
+    res["roc_card_vs_cpu"] = roc_card_vs_cpu(last["score"], last["labels"],
+                                             f"level {DET_LEVELS[-1]}")
+    del last
+
+    # step 3: NAU transfer and the CA-CFAR baseline
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nau, ids = synthesize_nau_rain(RngStream(SEED + 70).next(),
+                                   n=NAU_FRAMES, size=NAU_SIZE)
+    torch.cuda.synchronize()
+    res["nau_synth_s"] = time.perf_counter() - t0
+    res["nau_mask_fraction"] = float(nau["labels"].mean())
+    x, lab = nau["imgs"], nau["labels"]
+    if x.shape != (NAU_FRAMES, NAU_SIZE, NAU_SIZE, 1) or \
+            not bool(torch.isfinite(x).all()) or \
+            abs(res["nau_mask_fraction"] - 0.25) > 0.01:
+        raise AssertionError(f"NAU frames {tuple(x.shape)}, mask fraction "
+                             f"{res['nau_mask_fraction']}")
+    ev_nau = TN.make_transfer_eval(policy=pol)
+
+    def transfer():
+        out = TN.test_naurain(params, bn, nau, batch_sz=NAU_BATCH,
+                              policy=pol, ids=ids)
+        return out, ev_nau(params, bn, x[:NAU_BATCH], lab[:NAU_BATCH])
+
+    nau_out, (_, _, onet_pred, (vt, vd)) = run_step(
+        TC, res, "nau_transfer", transfer, NAU_FRAMES,
+        num_batches(NAU_FRAMES, NAU_BATCH) + 1)
+    check_metrics("test_naurain", {k: nau_out[k] for k in TS.KEYS})
+    if not all(np.isfinite(v) for v in nau_out.values()):
+        raise AssertionError(f"test_naurain: {nau_out}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = cfar_seg_batch(x, CFAR_KVAL)
+    cfar_m = {k: float(v) for k, v in
+              evaluate_binary_segmentation(det, lab).items()}
+    res["cfar_ms"] = (time.perf_counter() - t0) * 1e3
+    check_metrics("CA-CFAR", cfar_m)
+    res["cfar_card_vs_cpu"] = cfar_card_vs_cpu(x, det)
+    onet_far = float(evaluate_binary_segmentation(
+        onet_pred, lab[:NAU_BATCH])["far"])
+    first = (host(x[:NAU_BATCH]), host(lab[:NAU_BATCH]))
+    save_figure_inputs(          # test_naurain's figure, its first batch
+        "nau_rain_transfer", "save_nau_rain_grid", x=first[0],
+        names=np.array(ids[:NAU_BATCH]), pred_t=host(vt), pred_d=host(vd),
+        label=first[1], pred=host(onet_pred), title="nau_rain_transfer")
+    save_figure_inputs(
+        "nau_method_comparison", "save_method_comparison_grid", x=first[0],
+        label=first[1], method_names=np.array(["Onet", "CA-CFAR"]),
+        method_preds=np.stack([host(onet_pred), host(det[:NAU_BATCH])]),
+        method_fars=np.array([onet_far, cfar_m["far"]]))
+    res.update(nau=nau_out, cfar=cfar_m)
+    log(f"[detect] NAU transfer ({NAU_FRAMES} synthetic rain frames of "
+        f"{NAU_SIZE}^2, mask fraction {res['nau_mask_fraction']:.4f}, made "
+        f"in {res['nau_synth_s']:.3f} s): " + " ".join(
+            f"{k} {v:.4f}" for k, v in nau_out.items()))
+    log(f"[detect] CA-CFAR kval {CFAR_KVAL} on the same frames "
+        f"({res['cfar_ms']:.2f} ms): " + " ".join(
+            f"{k} {v:.4f}" for k, v in cfar_m.items()))
+
+    # step 4: the two-stage Onet
+    stage_root = tempfile.mkdtemp(prefix="onet_two_stage_")
+    base = SC.SimclutterConfig(epoch_nums=STAGE_EPOCHS, save_epochs=(),
+                               out_root=stage_root, input_sz=SIM_CROP,
+                               frames_per_level=DET_FRAMES)
+    n_train = int(base.frames_per_level * 0.9)
+    steps = STAGE_EPOCHS * num_batches(n_train, base.batch_sz)
+    evals = num_batches(base.frames_per_level - n_train, base.batch_sz)
+    trained = run_step(
+        TC, res, "train_by_snr",
+        lambda: SW.train_by_snr(base, levels=STAGE_LEVELS, policy=pol),
+        len(STAGE_LEVELS) * STAGE_EPOCHS * n_train,
+        len(STAGE_LEVELS) * evals, len(STAGE_LEVELS) * steps)
+    shutil.rmtree(stage_root)
+    for lvl, (p_l, _, hist) in trained.items():
+        if not np.isfinite(hist["loss"]).all():
+            raise AssertionError(f"train_by_snr level {lvl}: {hist}")
+        log(f"[detect] train_by_snr level {lvl}: loss {hist['loss']}, "
+            f"eval {hist['eval']}")
+    (p1, b1, _), (p2, b2, _) = (trained[lvl] for lvl in STAGE_LEVELS)
+    pair = {lvl: data[lvl] for lvl in STAGE_LEVELS}
+    two = run_step(TC, res, "verify_two_stage", lambda: TS.verify_two_stage(
+        p1, b1, p2, b2, pair, batch_sz=DET_BATCH, policy=pol),
+        2 * sum(len(ds) for ds in pair.values()),
+        2 * sum(num_batches(len(ds), DET_BATCH) for ds in pair.values()))
+    for lvl, r in two.items():
+        for stage, m in r.items():
+            check_metrics(f"two-stage {lvl} {stage}", m)
+        log(f"[detect] two-stage {lvl}: " + "; ".join(
+            f"{stage} " + " ".join(f"{k} {m[k]:.4f}" for k in TS.KEYS)
+            for stage, m in r.items()))
+    ev2 = TS.make_two_stage_eval(policy=pol)
+    batches = {lvl: {k: v[:DET_BATCH] for k, v in pair[lvl].data.items()}
+               for lvl in STAGE_LEVELS}
+    outs = run_step(TC, res, "two_stage_batches", lambda: {
+        lvl: ev2(p1, b1, p2, b2, b["imgs"], b["labels"])
+        for lvl, b in batches.items()},
+        len(STAGE_LEVELS) * DET_BATCH, 2 * len(STAGE_LEVELS))
+    for lvl, (_, _, pred1, pred2, (x2, fg)) in outs.items():
+        save_figure_inputs(      # draw_two_stage's figure
+            f"two_stage_level{lvl:02d}", "save_two_stage_grid",
+            x1=host(batches[lvl]["imgs"]), x2=host(x2),
+            fg=host(fg[..., None]), label=host(batches[lvl]["labels"]),
+            label1=host(pred1), label2=host(pred2),
+            title=f"two_stage_level{lvl:02d}")
+    res["two_stage"] = two
+    figs = [os.path.join(FIG_DIR, f + ".npz") for f in FIGURES]
+    log(f"[detect] figure inputs (drawn by render_figures where matplotlib "
+        f"is installed): {figs}")
+    if not all(os.path.getmtime(f) >= res["t_start"] for f in figs):
+        raise AssertionError(f"figure inputs not written by this run: {figs}")
+    del outs
+    res["launches"] = {k: sum(st["launches"][k]
+                              for st in res["steps"].values())
+                       for k in launch_counts(TC)}
+    del trained, p1, b1, p2, b2
+    torch.cuda.empty_cache()
+
+    # step 5: every conv launch of one eval forward at the new shapes
+    ev = make_eval_step(policy=pol)
+
+    def forward_all(x):
+        with torch.no_grad(), pol.precision():
+            O.onet_forward(params, bn, x, train=False, policy=pol)
+
+    errs = {}
+    for tag, run in (
+            (f"NAU {NAU_SIZE}^2 batch {NAU_BATCH}",
+             lambda: ev_nau(params, bn, x[:NAU_BATCH], lab[:NAU_BATCH])),
+            (f"sweep {SIM_CROP}^2 batch {DET_BATCH}",
+             lambda: ev(params, bn, data[10]["imgs"][:DET_BATCH],
+                        data[10]["labels"][:DET_BATCH])),
+            (f"threshold sweep {SIM_CROP}^2 level of {DET_FRAMES}",
+             lambda: forward_all(data[10]["imgs"]))):
+        ops = step_operands(TC, run)
+        for k, e in check_step_kernels(TC, ops, f"in the eval of the {tag}",
+                                       want=EVAL_LAUNCHES).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        del ops
+        torch.cuda.empty_cache()
+    res["kernel_errs"] = errs
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
               "card", file=sys.stderr)
         return 2
     from onet_tpu_torch.core.device import resolve_device
+    from onet_tpu_torch.models import onet as O
     from onet_tpu_torch.ops import _build
     from onet_tpu_torch.ops import conv_wp as TC
 
@@ -1628,6 +2052,21 @@ def main() -> int:
         f"{np.median([e['host_share'] for e in steady]):.3f}; the step "
         f"alone {sim['step_frames_per_s']:.1f} frames/s; on {card}")
     log(f"[phase6] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with pair_pack(O, True):
+        try:
+            det = detection_workload(TC, dev, sim["out_root"])
+        finally:
+            shutil.rmtree(sim["out_root"])
+    det["phase_s"] = time.perf_counter() - t0
+    log("[detect] " + json.dumps({k: v for k, v in det.items()
+                                  if k not in ("threshold_sweep",
+                                               "two_stage")}))
+    log(f"[detect] on {card}: " + "; ".join(
+        f"{k} {v['wall_s']:.2f} s ({v['frames_per_s']:.1f} frames/s)"
+        for k, v in det["steps"].items()))
+    log(f"[phase7] phase took {det['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -1666,6 +2105,19 @@ def main() -> int:
         if row["name"] in sim_launches:
             row["simclutter_launches"] = sim_launches[row["name"]]
             row["simclutter_max_abs_err"] = sim["kernel_errs"][row["name"]]
+    # phase 7's launches (steps 1-4: eval forwards, and train_by_snr's
+    # steps) and the largest errors of its eval forwards at the new shapes
+    # (N=10 at 200^2, N=20 and N=300 at 224^2)
+    dl = det["launches"]
+    det_launches = {"conv3x3_wp+stats": dl["conv3x3_wp+stats"],
+                    "conv3x3_wp2+stats": dl["conv3x3_wp2+stats"],
+                    "conv3x3_wp+dx": dl["conv3x3_wp"] - dl["conv3x3_wp+stats"],
+                    "conv3x3_wp_dw": dl["conv3x3_wp_dw"]}
+    for row in rows:
+        if row["name"] in det_launches:
+            row["detect_launches"] = det_launches[row["name"]]
+            if row["name"] in det["kernel_errs"]:
+                row["detect_max_abs_err"] = det["kernel_errs"][row["name"]]
     rows += phase5_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

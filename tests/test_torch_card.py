@@ -378,3 +378,65 @@ def test_bd_kernel_matches_plain(dev, shape, nin, dtype):
     _assert_sums_close(s1, rs1)
     _assert_sums_close(s2, rs2)
     assert torch.equal(s1, t1) and torch.equal(s2, t2)
+
+
+@pytest.mark.parametrize("nin", [1, 2])
+def test_conv_at_the_nau_shape_matches_plain(dev, nin):
+    """The eval forward's stats-epilogue convs at the NAU transfer's shape:
+    batch 5 of 200x200 frames, N=10 packed samples of width 100."""
+    xs, ws, bias = _inputs(dev, torch.bfloat16, 10, 200, 100, seed=20 + nin)
+    raw = TC.conv3x3_wp_raw if nin == 1 else TC.conv3x3_wp2_raw
+    plain = TC.conv3x3_wp_plain if nin == 1 else TC.conv3x3_wp2_plain
+    args = [*xs[:nin], *(m for wc in ws[:nin] for m in wc)]
+    n = raw.stats_launches
+    y, s1, s2 = raw(*args, stats=True)
+    torch.cuda.synchronize()
+    assert raw.stats_launches == n + 1
+    ry, rs1, rs2 = plain(*args, stats=True, out_dtype=torch.float32)
+    _assert_close(y, ry, torch.bfloat16)
+    _assert_sums_close(s1, rs1)
+    _assert_sums_close(s2, rs2)
+
+
+def _bits(t):
+    return t.view(torch.int32).long()
+
+
+def test_roc_points_on_the_card_matches_cpu(dev):
+    """Thresholds within 2 float32 ulps (float64 log and pow may round
+    apart), far and dr equal wherever no score lies within 2 ulps of a
+    threshold."""
+    from onet_tpu_torch.metrics.roc import roc_points
+
+    g = torch.Generator().manual_seed(30)
+    labels = torch.rand((8, 224, 224), generator=g) < 0.02
+    score = torch.randn((8, 224, 224), generator=g) + 2.0 * labels
+    got = [t.cpu() for t in roc_points(score.to(dev), labels.to(dev), 512)]
+    ref = roc_points(score, labels, 512)
+    assert (_bits(got[2]) - _bits(ref[2])).abs().max() <= 2
+    srt = torch.sort(score.reshape(-1)).values
+    i = torch.searchsorted(srt, ref[2]).clamp(1, srt.numel() - 1)
+    near = torch.minimum((_bits(srt[i]) - _bits(ref[2])).abs(),
+                         (_bits(srt[i - 1]) - _bits(ref[2])).abs()) <= 2
+    for g_, r_ in zip(got[:2], ref[:2]):
+        assert torch.equal(g_[~near], r_[~near])
+
+
+def test_cfar_seg_batch_on_the_card_matches_cpu(dev):
+    """Masks equal except at pixels within 1e-5 * kval * bg of the
+    decision, where the two cumsums' orders may differ."""
+    from onet_tpu_torch.metrics import cfar as CF
+
+    g = torch.Generator().manual_seed(31)
+    u = torch.rand((4, 200, 200), generator=g).clamp_min(1e-30)
+    imgs = torch.sqrt(-2.0 * torch.log(u))                  # Rayleigh
+    imgs[:, 50:60, 80:90] += 6.0
+    got = CF.cfar_seg_batch(imgs.to(dev), 2.0).cpu()
+    ref = CF.cfar_seg_batch(imgs, 2.0)
+    x = imgs.double()
+    ii = CF._integral(x)
+    (rs, rc), (gs, gc) = (CF._window_sums(ii, 200, 200, r) for r in (16, 8))
+    bg = (rs - gs) / torch.clamp_min(rc - gc, 1)
+    near = (x - 2.0 * bg).abs() <= 1e-5 * 2.0 * bg
+    assert not bool(((got != ref) & ~near).any())
+    assert got.dtype == torch.int32 and 0.005 < got.float().mean() < 0.2

@@ -31,7 +31,9 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "sim.rayleigh", "sim.kdist", "data.arrays",
                 "data.simclutter", "data.augment", "models.arch",
                 "report.logs", "report.curves", "train.preempt",
-                "train.simclutter"):
+                "train.simclutter", "metrics.roc", "metrics.cfar",
+                "data.zy3", "data.nau", "train.two_stage", "train.nau",
+                "train.sweeps"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,6 +69,9 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from onet_tpu_torch.sim.rayleigh import (generate_rayleigh_dataset,
                                              rayleigh_frames)
     from onet_tpu_torch.train.simclutter import SimclutterConfig, train
+    from onet_tpu_torch.data.nau import load_nau_dict_pt, synthesize_nau_rain
+    from onet_tpu_torch.train.sweeps import (per_snr_datasets, train_by_snr,
+                                             verify_checkpoint_dir)
 
     gen = torch.Generator().manual_seed(0)
     calls = [
@@ -93,6 +98,15 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: train(SimclutterConfig(base_channels=8, input_sz=8,
                                        frames_per_level=1, epoch_nums=1,
                                        out_root=str(tmp_path)), log=False),
+        lambda: load_nau_dict_pt(str(tmp_path / "missing.pt")),
+        lambda: synthesize_nau_rain(gen, n=1, size=8),
+        lambda: per_snr_datasets(0, levels=(0,), frames_per_level=1, crop=8),
+        lambda: train_by_snr(SimclutterConfig(base_channels=8, input_sz=8,
+                                              frames_per_level=1,
+                                              epoch_nums=1,
+                                              out_root=str(tmp_path)),
+                             levels=(0,)),
+        lambda: verify_checkpoint_dir(str(tmp_path)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
