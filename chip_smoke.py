@@ -68,6 +68,18 @@ Phases, each fatal on failure:
      under runs/chip_smoke_phase7 (``render_figures`` draws them where
      matplotlib is installed); every conv launch of one eval forward at
      N=10 (200^2), N=20 and N=300 (224^2) against its plain version.
+  8. the ZY-3 cloud-detection workload (``zy3_workload``) at full width
+     (base 64, 224^2 RGB, batch 5, bf16, pair-packed, aug on):
+     synthesize_zy3's 250 train and 50 test scenes made on the card, three
+     epochs of train/zy3.py's train() with the kernels' launches asserted
+     (steps x 6/1/4, eval forwards x 2/1/0), a restart_from to epoch 4;
+     every kernel launch of one augmented step (N=10), one eval forward
+     (N=10) and one oracle-scoring forward (N=18) against its plain
+     version; the report's rows with the detector rows and its workbook
+     (under runs/chip_smoke_phase8); dehaze and the nine preprocessing
+     options on the test thumbnails equal to their CPU runs;
+     choose_best_preprocess on 5; generation, step, augmentation, epoch,
+     eval and dehaze times, the host share and the peak memory.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -85,6 +97,7 @@ import sys
 import threading
 import time
 import urllib.request
+import zipfile
 
 import numpy as np
 import torch
@@ -1990,6 +2003,377 @@ def detection_workload(TC, dev, ckpt_dir: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the ZY-3 cloud-detection workload
+# ---------------------------------------------------------------------------
+
+ZY3_TRAIN, ZY3_TEST = 250, 50     # the reference's ZY-3 train and test dicts
+ZY3_SIZE = 224                    # their 224^2 RGB thumbnails
+ZY3_COVER = 0.35                  # synthesize_zy3's cloud_cover
+ZY3_EPOCHS = 3                    # of Zy3Config's 11: the one cut
+ZY3_CHOOSE = 5                    # test thumbnails through the oracle choice
+ZY3_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "runs", "chip_smoke_phase8")
+# The card's host has pandas and PIL (checked there with `python3 -c
+# "import pandas, PIL"`: pandas 3.0.2, PIL 12.2.0), so phase 8 writes the
+# Excel report there; it has no matplotlib, so phase 8 draws no figure.
+
+
+def zy3_data(dev) -> tuple:
+    """Phase 8, step 1: the train and test scenes generated on the card
+    (synthesize_zy3 at the reference's sizes). Returns (train, test, test
+    ids, wall seconds)."""
+    from onet_tpu_torch.core.prng import RngStream
+    from onet_tpu_torch.data.zy3 import synthesize_zy3
+
+    stream = RngStream(SEED + 80)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_ds, _ = synthesize_zy3(stream.next(), n=ZY3_TRAIN, size=ZY3_SIZE,
+                                 cloud_cover=ZY3_COVER)
+    test_ds, test_ids = synthesize_zy3(stream.next(), n=ZY3_TEST,
+                                       size=ZY3_SIZE, cloud_cover=ZY3_COVER)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name, ds, n in (("train", train_ds, ZY3_TRAIN),
+                        ("test", test_ds, ZY3_TEST)):
+        x, m = ds["imgs"], ds["labels"]
+        cover = float(m.mean())
+        if x.shape != (n, ZY3_SIZE, ZY3_SIZE, 3) or x.device.type != dev.type \
+                or not bool(torch.isfinite(x).all()) \
+                or abs(cover - ZY3_COVER) > 0.01:
+            raise AssertionError(f"zy3 {name} scenes {tuple(x.shape)} on "
+                                 f"{x.device}, cloud cover {cover}")
+    log(f"[zy3] generation: {ZY3_TRAIN} + {ZY3_TEST} RGB scenes of "
+        f"{ZY3_SIZE}^2 on the card in {secs:.3f} s; cloud cover "
+        f"{float(train_ds['labels'].mean()):.4f} / "
+        f"{float(test_ds['labels'].mean()):.4f}")
+    return train_ds, test_ds, test_ids, secs
+
+
+def zy3_drive(TC, res, train_ds, test_ds) -> dict:
+    """Phase 8, step 2: train() for ZY3_EPOCHS epochs with Zy3Config's
+    defaults, the pair-packed kernels' launches counted around the call and
+    around its evaluate_zy3 calls; then restart_from its milestone to one
+    epoch more. Returns the epoch marks (perf_counter seconds)."""
+    import glob
+    import tempfile
+
+    from onet_tpu_torch.core.bridge import load_onet_npz
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.models.unet import tree_leaves
+    from onet_tpu_torch.train import zy3 as Z
+
+    marks = {"train": [], "eval": [], "eval_end": []}
+    eval_launches = {k: 0 for k in launch_counts(TC)}
+    real_eval, real_iter = Z.evaluate_zy3, Z.batch_iterator
+
+    def timed_eval(*a, **kw):
+        torch.cuda.synchronize()
+        marks["eval"].append(time.perf_counter())
+        before = launch_counts(TC)
+        out = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        marks["eval_end"].append(time.perf_counter())
+        for k, v in launch_counts(TC).items():
+            eval_launches[k] += v - before[k]
+        return out
+
+    def marked_iter(ds, batch_size, *, gen=None, **kw):
+        if gen is not None:                # the train loop's, once an epoch
+            torch.cuda.synchronize()
+            marks["train"].append(time.perf_counter())
+        return real_iter(ds, batch_size, gen=gen, **kw)
+
+    out_root = tempfile.mkdtemp(prefix="onet_zy3_")
+    cfg = dict(save_epochs=(), out_root=out_root)
+    Z.evaluate_zy3, Z.batch_iterator = timed_eval, marked_iter
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(TC)
+        t0 = time.perf_counter()
+        params, bn, hist = Z.train(Z.Zy3Config(epoch_nums=ZY3_EPOCHS, **cfg),
+                                   train_ds, test_ds, policy=BF16_COMPUTE,
+                                   log=False)
+        torch.cuda.synchronize()
+        res["train_s"] = time.perf_counter() - t0
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        total = launch_counts(TC)
+    finally:
+        Z.evaluate_zy3, Z.batch_iterator = real_eval, real_iter
+    batch = Z.Zy3Config.batch_sz
+    steps = ZY3_EPOCHS * num_batches(ZY3_TRAIN, batch)
+    forwards = ZY3_EPOCHS * num_batches(ZY3_TEST, batch)
+    launches = {k: total[k] - eval_launches[k] for k in total}
+    log(f"[zy3] train(): {ZY3_TRAIN} scenes, {steps} steps in {ZY3_EPOCHS} "
+        f"epochs, {res['train_s']:.2f} s; step launches {launches}; eval "
+        f"launches ({len(marks['eval'])} evaluate_zy3 calls, {forwards} "
+        f"forwards) {eval_launches}; losses {hist['loss']}; eval "
+        f"{hist['eval']}")
+    want = expect(0, steps)
+    if launches != want:
+        raise AssertionError(f"driver launches {launches}, expected {want}")
+    if eval_launches != expect(forwards):
+        raise AssertionError(f"eval launches {eval_launches}, expected "
+                             f"{expect(forwards)}")
+    if not all(np.isfinite(hist["loss"])) or \
+            sorted(hist["eval"]) != list(range(ZY3_EPOCHS)) or not all(
+                0.0 <= m[k] <= 1.0 for m in hist["eval"].values()
+                for k in ("acc", "miou", "dr", "far", "tiou")):
+        raise AssertionError(f"driver history off: {hist}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError("non-finite parameter after train()")
+
+    saved = glob.glob(os.path.join(
+        out_root, f"onet_vanilla_zy3_epoch{ZY3_EPOCHS - 1}_*.npz"))
+    if len(saved) != 1:
+        raise AssertionError(f"milestones {os.listdir(out_root)}")
+    file_params, _, file_epoch = load_onet_npz(saved[0])
+    if file_epoch != ZY3_EPOCHS - 1 or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(file_params),
+                                              tree_leaves(params))):
+        raise AssertionError("the saved milestone is not the trained state")
+    t0 = time.perf_counter()
+    _, _, hist2 = Z.train(Z.Zy3Config(epoch_nums=ZY3_EPOCHS + 1,
+                                      restart_from=saved[0], **cfg),
+                          train_ds, test_ds, policy=BF16_COMPUTE, log=False)
+    res["restart_s"] = time.perf_counter() - t0
+    log(f"[zy3] restart_from epoch {file_epoch}: ran epochs "
+        f"{sorted(hist2['eval'])} in {res['restart_s']:.2f} s, loss "
+        f"{hist2['loss']}, eval {hist2['eval']}")
+    if sorted(hist2["eval"]) != [ZY3_EPOCHS] or len(hist2["loss"]) != 1 \
+            or not np.isfinite(hist2["loss"][0]):
+        raise AssertionError("restart_from did not continue the epoch count")
+    shutil.rmtree(out_root)
+    res.update(launches=launches, eval_launches=eval_launches, steps=steps,
+               eval_forwards=forwards, history=hist)
+    return marks, params, bn
+
+
+def zy3_report(TC, res, params, bn, test_ds, test_ids) -> None:
+    """Phase 8, step 3a: the report's rows on the trained model over the
+    test scenes (10 eval forwards, counted), then its workbook."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.train import zy3 as Z
+
+    forwards = num_batches(ZY3_TEST, Z.Zy3Config.batch_sz)
+    torch.cuda.synchronize()
+    reset_counts(TC)
+    t0 = time.perf_counter()
+    rows, summary = Z.zy3_test_rows(params, bn, test_ds, test_ids,
+                                    policy=BF16_COMPUTE)
+    torch.cuda.synchronize()
+    res["report_rows_s"] = time.perf_counter() - t0
+    got = launch_counts(TC)
+    if got != expect(forwards):
+        raise AssertionError(f"report launches {got}, expected "
+                             f"{expect(forwards)}")
+    det = [r for r in summary if r["group"].startswith("detector@")]
+    overall = next(r for r in summary if r["group"] == "all")
+    if len(rows) != ZY3_TEST or len(det) != len(Z.DETECTOR_FARS) or \
+            not all(np.isfinite([r["dr"], r["far"], r["threshold"]]).all()
+                    and r["far"] <= float(r["group"].split("<=")[1])
+                    for r in det) or \
+            not 0.0 <= overall["acc"] <= 1.0 or \
+            not all(r[k].shape[:2] == (ZY3_SIZE, ZY3_SIZE) for r in rows
+                    for k in ("rgb", "label", "pred", "vt", "vd")):
+        raise AssertionError(f"report rows {len(rows)}, summary {summary}")
+    os.makedirs(ZY3_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    path, _ = Z.write_zy3_report(os.path.join(ZY3_DIR, "zy3_report.xlsx"),
+                                 rows, summary)
+    res["report_write_s"] = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as z:
+        pngs = sum(n.endswith(".png") for n in z.namelist())
+    if pngs != 5 * ZY3_TEST:
+        raise AssertionError(f"{path}: {pngs} thumbnails")
+    log(f"[zy3] Excel report {path}: {len(rows)} rows, {pngs} thumbnails, "
+        f"written on the card's host in {res['report_write_s']:.2f} s")
+    res.update(report_overall=overall, report_detector=det,
+               report_launches=got)
+    log(f"[zy3] report on {ZY3_TEST} test scenes ({res['report_rows_s']:.2f} "
+        f"s): overall acc {overall['acc']:.4f} miou {overall['miou']:.4f}; "
+        + "; ".join(f"{r['group']}: dr {r['dr']:.4f} far {r['far']:.4f} "
+                    f"threshold {r['threshold']:.4f}" for r in det))
+
+
+def zy3_preprocess(TC, res, params, bn, test_ds) -> None:
+    """Phase 8, step 3b: dehaze and the nine preprocessing options on the
+    test thumbnails, on the card against their CPU runs (equal: each step
+    is elementwise, exact or a true division); dehaze's time;
+    choose_best_preprocess on ZY3_CHOOSE of them (one forward of the nine
+    variants each, counted)."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.preprocess.curation import choose_best_preprocess
+    from onet_tpu_torch.preprocess.haze import dehaze
+    from onet_tpu_torch.preprocess.image import PRE_OPTIONS, apply_pre_option
+
+    u8 = (test_ds["imgs"] * 255).to(torch.uint8)
+    im = u8.float() / 255.0
+    pairs = [(f"dehaze {k}", a, b) for k, a, b in
+             zip("JK", dehaze(im), dehaze(im.cpu()))]
+    pairs += [(o, apply_pre_option(u8, o), apply_pre_option(u8.cpu(), o))
+              for o in PRE_OPTIONS]
+    res["card_vs_cpu_differ"] = {tag: int((a.cpu() != b).sum())
+                                 for tag, a, b in pairs}
+    log(f"[check] dehaze and the nine preprocessing options on {ZY3_TEST} "
+        f"thumbnails {tuple(im.shape)}, card vs CPU, values that differ: "
+        f"{res['card_vs_cpu_differ']}")
+    if any(res["card_vs_cpu_differ"].values()):
+        raise AssertionError("preprocessing: card and CPU disagree")
+    res["dehaze_ms_per_frame"] = cuda_ms(lambda: dehaze(im)) / ZY3_TEST
+    torch.cuda.synchronize()
+    reset_counts(TC)
+    t0 = time.perf_counter()
+    best, rows = choose_best_preprocess(
+        params, bn, list(u8[:ZY3_CHOOSE]), list(test_ds["labels"][:ZY3_CHOOSE]),
+        [f"zy3_syn_{i:04d}" for i in range(ZY3_CHOOSE)], policy=BF16_COMPUTE)
+    torch.cuda.synchronize()
+    res["choose_s"] = time.perf_counter() - t0
+    got = launch_counts(TC)
+    if got != expect(ZY3_CHOOSE):
+        raise AssertionError(f"choose launches {got}, expected "
+                             f"{expect(ZY3_CHOOSE)}")
+    if len(rows) != ZY3_CHOOSE * len(PRE_OPTIONS) or not all(
+            0.0 <= r[m] <= 1.0 for r in rows for m in ("acc", "miou")):
+        raise AssertionError(f"choose_best_preprocess rows {rows}")
+    res["choose"] = {name: (b["option"], b["acc"], b["miou"])
+                     for name, b in best.items()}
+    log(f"[zy3] dehaze {res['dehaze_ms_per_frame']:.3f} ms per {ZY3_SIZE}^2 "
+        f"frame (batch of {ZY3_TEST}); choose_best_preprocess on "
+        f"{ZY3_CHOOSE} thumbnails x {len(PRE_OPTIONS)} options in "
+        f"{res['choose_s']:.2f} s: {res['choose']}")
+
+
+def zy3_workload(TC, dev) -> dict:
+    """Phase 8: the ZY-3 cloud-detection workload at full width (base 64,
+    224^2 RGB, batch 5, bf16, pair-packed; Zy3Config's defaults: Adam at
+    1e-4, cosine warm restarts, aug on, per-image Hungarian eval every
+    epoch). The one cut: epoch_nums, 3 of 11 (and a 4th through
+    restart_from).
+
+    1. synthesize_zy3 on the card: 250 train and 50 test scenes.
+    2. train() for 3 epochs, the pair-packed kernels' launches asserted:
+       steps x (6 / 1 / 4), and evaluate_zy3's forwards x (2 / 1 / 0);
+       restart_from the milestone to epoch 4.
+    3. Every kernel launch of one driver step on an augmented batch (N=10
+       packed), of one eval forward (N=10) and of one oracle-scoring
+       forward (nine variants, N=18) against its plain version; the step's
+       loss against the stacked step's from the same start (1e-2
+       relative).
+    4. zy3_test_rows on the trained model over the 50 test scenes (the
+       detector rows required), the workbook; dehaze and the nine
+       preprocessing options on the test thumbnails equal to their CPU
+       runs; choose_best_preprocess on 5 of them.
+    5. Times: generation, each epoch's train and eval wall time and
+       frames/s, the step alone and the augmentation alone at batch 5
+       (CUDA events, median), the host share 1 - batches x (step +
+       augmentation) / epoch's train time, the peak memory of train(),
+       dehaze per frame."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.core.prng import make_generator
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.data.augment import augment_batch
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.models.unet import param_count
+    from onet_tpu_torch.preprocess.curation import score_variants
+    from onet_tpu_torch.preprocess.image import PRE_OPTIONS, apply_pre_option
+    from onet_tpu_torch.train import zy3 as Z
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    cfg = Z.Zy3Config()
+    res = {}
+    train_ds, test_ds, test_ids, res["generate_s"] = zy3_data(dev)
+    marks, params, bn = zy3_drive(TC, res, train_ds, test_ds)
+    res["params_m"] = param_count(params) / 1e6
+    torch.cuda.empty_cache()
+
+    # the kernels at train()'s operands: one step on an augmented batch
+    lr = cfg.base_lr
+    p0, st0 = O.onet_init(torch.Generator().manual_seed(SEED + 80),
+                          cfg.in_channels, base=cfg.base_channels)
+    x = augment_batch(make_generator(SEED + 81, dev),
+                      train_ds["imgs"][:cfg.batch_sz])
+    step = make_train_step(policy=BF16_COMPUTE)
+    with pair_pack(O, False):
+        step_st = make_train_step(policy=BF16_COMPUTE)
+    got = {}
+    tag = f"in the ZY-3 step, batch {cfg.batch_sz} RGB"
+    ops = step_operands(TC, lambda: got.update(loss=step(
+        _clone(p0), _clone(st0), adam_init(p0), x, lr)[3]))
+    res["kernel_errs"] = check_step_kernels(TC, ops, tag)
+    del ops
+    with pair_pack(O, False):
+        loss_st = step_st(_clone(p0), _clone(st0), adam_init(p0), x,
+                          lr)[3].item()
+    loss = got["loss"].item()
+    res["bf16_loss_rel"] = abs(loss_st - loss) / abs(loss)
+    log(f"[zy3] first-step loss {tag}: wp {loss:.6f}, stacked "
+        f"{loss_st:.6f}, relative difference {res['bf16_loss_rel']:.3e}")
+    if not res["bf16_loss_rel"] <= 1e-2:
+        raise AssertionError(f"{tag}: wp/stacked loss differ by "
+                             f"{res['bf16_loss_rel']}")
+    ev = Z.make_zy3_eval(policy=BF16_COMPUTE)
+    u8 = (test_ds["imgs"][:1] * 255).to(torch.uint8)
+    stack = torch.stack([apply_pre_option(u8[0], o) for o in PRE_OPTIONS])
+    for name, run in (
+            (f"eval, batch {cfg.batch_sz}", lambda: ev(
+                params, bn, test_ds["imgs"][:cfg.batch_sz],
+                test_ds["labels"][:cfg.batch_sz])),
+            (f"oracle scoring, {len(PRE_OPTIONS)} variants", lambda:
+             score_variants(params, bn, stack, test_ds["labels"][0],
+                            policy=BF16_COMPUTE))):
+        ops = step_operands(TC, run)
+        for k, e in check_step_kernels(TC, ops, f"in the ZY-3 {name}",
+                                       want=EVAL_LAUNCHES).items():
+            res["kernel_errs"][k] = max(res["kernel_errs"].get(k, 0.0), e)
+        del ops
+    torch.cuda.empty_cache()
+
+    # the step and the augmentation alone, at batch 5
+    with pair_pack(O, True):
+        o0 = adam_init(p0)
+        res["step_ms"] = cuda_ms(lambda: step(p0, st0, o0, x, lr))
+        g = make_generator(SEED + 82, dev)
+        res["aug_ms"] = cuda_ms(lambda: augment_batch(
+            g, train_ds["imgs"][:cfg.batch_sz]))
+        breakdown(lambda: step(p0, st0, o0, x, lr),
+                  f"ZY-3 train step {ZY3_SIZE}^2 RGB batch {cfg.batch_sz} wp",
+                  top=8)
+        breakdown(lambda: augment_batch(g, train_ds["imgs"][:cfg.batch_sz]),
+                  f"ZY-3 augmentation, batch {cfg.batch_sz}", top=6)
+    del p0, st0, o0
+    torch.cuda.empty_cache()
+
+    with pair_pack(O, True):
+        zy3_report(TC, res, params, bn, test_ds, test_ids)
+        zy3_preprocess(TC, res, params, bn, test_ds)
+
+    batches = num_batches(ZY3_TRAIN, cfg.batch_sz)
+    busy = batches * (res["step_ms"] + res["aug_ms"])
+    epochs = []
+    for e in range(ZY3_EPOCHS):
+        tr = (marks["eval"][e] - marks["train"][e]) * 1e3
+        evm = (marks["eval_end"][e] - marks["eval"][e]) * 1e3
+        epochs.append(dict(train_ms=tr, eval_ms=evm,
+                           frames_per_s=ZY3_TRAIN / tr * 1e3,
+                           host_share=1.0 - busy / tr))
+    res["epochs"] = epochs
+    for e, ep in enumerate(epochs):
+        log(f"[zy3] epoch {e}: train {ep['train_ms'] / 1e3:.3f} s "
+            f"({ep['frames_per_s']:.1f} frames/s, host share "
+            f"{ep['host_share']:.3f}), eval {ep['eval_ms'] / 1e3:.3f} s")
+    log(f"[zy3] step alone, batch {cfg.batch_sz} RGB at {ZY3_SIZE}^2 bf16 "
+        f"pair-packed ({res['params_m']:.2f}M parameters): "
+        f"{res['step_ms']:.3f} ms; augmentation {res['aug_ms']:.3f} ms per "
+        f"batch; peak {res['peak_gib']:.2f} GiB in train()")
+    del res["history"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -2067,6 +2451,23 @@ def main() -> int:
         f"{k} {v['wall_s']:.2f} s ({v['frames_per_s']:.1f} frames/s)"
         for k, v in det["steps"].items()))
     log(f"[phase7] phase took {det['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with pair_pack(O, True):
+        zy3 = zy3_workload(TC, dev)
+    zy3["phase_s"] = time.perf_counter() - t0
+    log("[zy3] " + json.dumps(zy3))
+    steady = zy3["epochs"][1:] or zy3["epochs"]
+    log(f"[zy3] ZY-3 driver, {ZY3_SIZE}x{ZY3_SIZE} RGB batch 5 bf16 "
+        f"pair-packed, aug on: "
+        f"{np.median([e['frames_per_s'] for e in steady]):.1f} frames/s over "
+        f"epochs 1-{ZY3_EPOCHS - 1}, epoch "
+        f"{np.median([e['train_ms'] for e in steady]) / 1e3:.3f} s, eval "
+        f"{np.median([e['eval_ms'] for e in steady]) / 1e3:.3f} s, host "
+        f"share {np.median([e['host_share'] for e in steady]):.3f}; step "
+        f"{zy3['step_ms']:.3f} ms + augmentation {zy3['aug_ms']:.3f} ms; on "
+        f"{card}")
+    log(f"[phase8] phase took {zy3['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -2118,6 +2519,18 @@ def main() -> int:
             row["detect_launches"] = det_launches[row["name"]]
             if row["name"] in det["kernel_errs"]:
                 row["detect_max_abs_err"] = det["kernel_errs"][row["name"]]
+    # phase 8's launches in the ZY-3 train() (the eval calls' apart) and
+    # the largest errors of one ZY-3 step (N=10), eval forward (N=10) and
+    # oracle-scoring forward (N=18)
+    zl = zy3["launches"]
+    zy3_launches = {"conv3x3_wp+stats": zl["conv3x3_wp+stats"],
+                    "conv3x3_wp2+stats": zl["conv3x3_wp2+stats"],
+                    "conv3x3_wp+dx": zl["conv3x3_wp"] - zl["conv3x3_wp+stats"],
+                    "conv3x3_wp_dw": zl["conv3x3_wp_dw"]}
+    for row in rows:
+        if row["name"] in zy3_launches:
+            row["zy3_launches"] = zy3_launches[row["name"]]
+            row["zy3_max_abs_err"] = zy3["kernel_errs"][row["name"]]
     rows += phase5_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

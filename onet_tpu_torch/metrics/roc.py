@@ -88,13 +88,19 @@ def interpolate(lo_v, hi_v, lw, hw) -> torch.Tensor:
 
 
 def quantile(x: torch.Tensor, q) -> torch.Tensor:
-    """``jnp.quantile(x, q, axis=-1)`` for a scalar ``q``: one sort of the
-    last axis and ``quantile_positions``; NaN where a row holds a NaN."""
+    """``jnp.quantile(x, q, axis=-1)`` for a scalar ``q`` or one ``q`` per
+    row (shape ``x.shape[:-1]``, as ``vmap`` of ``jnp.quantile`` over the
+    rows): one sort of the last axis and ``quantile_positions``; NaN where
+    a row holds a NaN."""
     x = x.to(torch.float32)
     q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
     srt = torch.sort(x, dim=-1).values
     lo, hi, lw, hw = quantile_positions(x.shape[-1], q)
-    out = interpolate(srt[..., lo], srt[..., hi], lw, hw)
+
+    def at(i):
+        return srt.gather(-1, i.expand(x.shape[:-1])[..., None])[..., 0]
+
+    out = interpolate(at(lo), at(hi), lw, hw)
     return torch.where(torch.isnan(x).any(-1),
                        torch.full_like(out, float("nan")), out)
 

@@ -159,6 +159,18 @@ def get_label(vt: torch.Tensor, vd: torch.Tensor):
     return torch.argmax(s, dim=-1), s
 
 
+
+def determine_fg_mark(pred: torch.Tensor, labels: torch.Tensor) -> str:
+    """Which branch carries the foreground, decided on one labelled batch
+    (the reference's assign_fg_mark): 'top' if the raw argmax already
+    agrees with its Hungarian-aligned labels, else 'down'. One host read;
+    called once, outside any loop."""
+    from onet_tpu_torch.metrics.segmentation import align_labels_hungarian
+
+    aligned = align_labels_hungarian(pred, labels)
+    return "top" if bool(torch.all(pred == aligned)) else "down"
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------

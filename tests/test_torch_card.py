@@ -440,3 +440,82 @@ def test_cfar_seg_batch_on_the_card_matches_cpu(dev):
     near = (x - 2.0 * bg).abs() <= 1e-5 * 2.0 * bg
     assert not bool(((got != ref) & ~near).any())
     assert got.dtype == torch.int32 and 0.005 < got.float().mean() < 0.2
+
+
+def test_zy3_step_launches_match_plain(dev, monkeypatch):
+    """Every kernel launch of one pair-packed ZY-3 train step (base 64,
+    batch 5 of 224x224 RGB, bf16: N=10 packed samples, the 6-channel
+    stacked input through inc.conv1 first) against its plain version on
+    the operands the step gave it: 3 stats-epilogue forwards (one of them
+    two-input), 4 dx convs, 4 weight gradients."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as TO
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    ops = []
+    real_launch, real_dw = TC._launch, TC._launch_dw
+
+    def launch(xs, taps, *rest):
+        ops.append(("conv", [x.clone() for x in xs],
+                    [t.clone() for t in taps], *rest))
+        return real_launch(xs, taps, *rest)
+
+    def launch_dw(x, dy):
+        ops.append(("dw", x.clone(), dy.clone()))
+        return real_dw(x, dy)
+
+    monkeypatch.setattr(TC, "_launch", launch)
+    monkeypatch.setattr(TC, "_launch_dw", launch_dw)
+    monkeypatch.setattr(TO, "PAIR_PACK", True)
+    params, state = TO.onet_init(torch.Generator().manual_seed(40), 3,
+                                 device=dev)
+    x = torch.rand((5, 224, 224, 3), generator=torch.Generator()
+                   .manual_seed(41)).to(dev)
+    step = make_train_step(policy=BF16_COMPUTE)
+    loss = step(params, state, adam_init(params), x, 1e-4)[3]
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    seen = {}
+    for op in ops:
+        if op[0] == "dw":
+            _, xx, dy = op
+            key = "dw"
+            _assert_sums_close(real_dw(xx, dy),
+                               TC.conv3x3_wp_dw_plain(xx, dy))
+        else:
+            _, xs, taps, bias, bias_relu, stats, out_dtype = op
+            key = ("stats" if stats else "dx") + str(len(xs))
+            ws = [m for t in taps for m in TC.make_wc_we(t, dtype=t.dtype)]
+            plain = (TC.conv3x3_wp_plain if len(xs) == 1
+                     else TC.conv3x3_wp2_plain)
+            ref = plain(*xs, *ws, bias=bias, bias_relu=bias_relu,
+                        stats=stats, out_dtype=torch.float32)
+            got = real_launch(xs, taps, bias, bias_relu, stats, out_dtype)
+            if stats:
+                _assert_close(got[0], ref[0], xs[0].dtype)
+                _assert_sums_close(got[1], ref[1])
+                _assert_sums_close(got[2], ref[2])
+            else:
+                _assert_close(got, ref, xs[0].dtype)
+        assert op[1][0].shape[0] == 10 if op[0] == "conv" else \
+            op[1].shape[0] == 10
+        seen[key] = seen.get(key, 0) + 1
+    assert seen == {"stats1": 2, "stats2": 1, "dx1": 4, "dw": 4}
+
+
+def test_zy3_preprocessing_on_the_card_matches_cpu(dev):
+    """dehaze and the nine preprocessing options on uint8 thumbnails: the
+    card computes what the CPU computes (every step elementwise, exact or
+    a true division)."""
+    from onet_tpu_torch.preprocess.haze import dehaze
+    from onet_tpu_torch.preprocess.image import PRE_OPTIONS, apply_pre_option
+
+    u8 = torch.randint(0, 256, (3, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(42))
+    im = u8.float() / 255.0
+    for got, ref in zip(dehaze(im.to(dev)), dehaze(im)):
+        assert torch.equal(got.cpu(), ref)
+    for option in PRE_OPTIONS:
+        assert torch.equal(apply_pre_option(u8.to(dev), option).cpu(),
+                           apply_pre_option(u8, option)), option

@@ -33,7 +33,10 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "report.logs", "report.curves", "train.preempt",
                 "train.simclutter", "metrics.roc", "metrics.cfar",
                 "data.zy3", "data.nau", "train.two_stage", "train.nau",
-                "train.sweeps"):
+                "train.sweeps", "models.onet", "utils.summary",
+                "preprocess.haze", "preprocess.image",
+                "preprocess.curation", "preprocess.onramp", "report.xlsx",
+                "report.tables", "train.zy3"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,6 +75,13 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from onet_tpu_torch.data.nau import load_nau_dict_pt, synthesize_nau_rain
     from onet_tpu_torch.train.sweeps import (per_snr_datasets, train_by_snr,
                                              verify_checkpoint_dir)
+    from onet_tpu_torch.data.zy3 import (load_zy3_dict_pt,
+                                         synthesize_cloud_addition,
+                                         synthesize_zy3)
+    from onet_tpu_torch.preprocess.onramp import (choose_preprocess,
+                                                  load_image_u8,
+                                                  prepare_zy3_thumbnails)
+    from onet_tpu_torch.train import zy3 as Z
 
     gen = torch.Generator().manual_seed(0)
     calls = [
@@ -107,6 +117,15 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                                               out_root=str(tmp_path)),
                              levels=(0,)),
         lambda: verify_checkpoint_dir(str(tmp_path)),
+        lambda: load_zy3_dict_pt(str(tmp_path / "missing.pt")),
+        lambda: synthesize_zy3(gen, n=1, size=8),
+        lambda: synthesize_cloud_addition(gen, n=1, size=8),
+        lambda: Z.train(Z.Zy3Config(base_channels=8, input_sz=8,
+                                    epoch_nums=1, out_root=str(tmp_path)),
+                        None, None, log=False),
+        lambda: load_image_u8(str(tmp_path / "missing.png")),
+        lambda: prepare_zy3_thumbnails([str(tmp_path / "missing.png")]),
+        lambda: choose_preprocess(None, None, [], []),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -49,6 +49,17 @@ from onet_tpu_torch.sim.rayleigh import (center_crop, generate_rayleigh_dataset,
 from onet_tpu_torch.sim.targets import Targets, rayleigh_sample, render
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these tiny tensors: where several test
+    processes share the cores, a parallel region waits for threads that
+    are not scheduled and a millisecond op takes tens of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_draws(key, h, w, swerling, n_targets=20):
     """The target parameters place_gaussian_targets draws from ``key``."""
     kc, kw, kh, kt, ka = jax.random.split(key, 5)

@@ -49,6 +49,17 @@ CFG = dict(model_name="m", epoch_nums=3, input_sz=32, base_channels=8,
            eval_every=1, save_epochs=(), seed=SEED)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these tiny tensors: where several test
+    processes share the cores, a parallel region waits for threads that
+    are not scheduled and a millisecond op takes tens of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(lambda a: np.array(a, copy=True), tree)
 
@@ -109,8 +120,21 @@ def _port_train(jax_data, out_root, **kw):
                     device="cpu")
 
 
-def test_driver_matches_jax(jax_data, jax_run, port_init, tmp_path):
-    params, _, hist = _port_train(jax_data, tmp_path)
+@pytest.fixture(scope="module")
+def port_run(jax_data, jax_init, tmp_path_factory):
+    """The port's uninterrupted run from JAX's init, shared by the tests
+    that hold it to JAX's and to a resumed run: (params, history, its
+    output directory)."""
+    out = tmp_path_factory.mktemp("port")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TO, "onet_init", lambda gen, in_channels=1, *, device=None,
+                   **kw: from_jax_numpy(*jax_init, device=device))
+        params, _, hist = _port_train(jax_data, out)
+    return params, hist, out
+
+
+def test_driver_matches_jax(jax_run, port_run):
+    params, hist, out = port_run
     np.testing.assert_allclose(hist["loss"], jax_run["loss"], rtol=1e-4)
     assert sorted(hist["eval"]) == sorted(jax_run["eval"]) == [0, 1, 2]
     for e, want in jax_run["eval"].items():
@@ -119,7 +143,7 @@ def test_driver_matches_jax(jax_data, jax_run, port_init, tmp_path):
         for k in want:
             assert abs(got[k] - float(want[k])) <= 1e-2, (e, k)
     # the final milestone, in the JAX package's format
-    saved = glob.glob(os.path.join(str(tmp_path), "m_epoch_2_*.npz"))
+    saved = glob.glob(os.path.join(str(out), "m_epoch_2_*.npz"))
     assert len(saved) == 1
     p2, _, epoch = load_onet_npz(saved[0], device="cpu")
     assert epoch == 2
@@ -127,8 +151,9 @@ def test_driver_matches_jax(jax_data, jax_run, port_init, tmp_path):
                zip(tree_leaves(p2), tree_leaves(params)))
 
 
-def test_resume_continues_the_epoch_count(jax_data, port_init, tmp_path):
-    _, _, full = _port_train(jax_data, tmp_path / "full")
+def test_resume_continues_the_epoch_count(jax_data, port_init, port_run,
+                                          tmp_path):
+    full = port_run[1]
     _, _, first = _port_train(jax_data, tmp_path / "cut", epoch_nums=2)
     assert len(first["loss"]) == 2
     params, _, rest = _port_train(jax_data, tmp_path / "cut", resume=True)

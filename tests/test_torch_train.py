@@ -252,8 +252,8 @@ def test_eval_forward_keeps_the_state(model):
     with torch.no_grad():
         out, ns = TO.onet_forward(tp, ts, torch.tensor(model["x"]),
                                   train=False)
-    jout, _ = JO.onet_forward(params, state, jnp.asarray(model["x"]),
-                              train=False)
+    jout, _ = jax.jit(JO.onet_forward, static_argnames=("train",))(
+        params, state, jnp.asarray(model["x"]), train=False)
     _close_leaves(tree_leaves(ns), tree_leaves(ts), rel=0)
     np.testing.assert_allclose(out.S.numpy(), np.asarray(jout.S), rtol=1e-4,
                                atol=1e-4)

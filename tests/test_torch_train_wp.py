@@ -49,7 +49,6 @@ import onet_tpu.models.onet as JO
 import onet_tpu.models.wp as JW
 import onet_tpu.ops.pallas_conv as PC
 from onet_tpu.train import optim as JOpt
-from onet_tpu.train.steps import make_train_step as j_make_train_step
 
 from onet_tpu_torch.core.bridge import adam_state_from_jax, from_jax_numpy
 from onet_tpu_torch.models import onet as TO
@@ -131,7 +130,9 @@ def _float64_gradient(case):
                                      pair_pack=False)
             return JO.compute_loss(out)
 
-        loss, g = jax.value_and_grad(jf)(cast(case["params"]))
+        # jitted: op by op, the float64 backward compiles each primitive
+        # jitted: op by op, the float64 backward compiles each primitive
+        loss, g = jax.jit(jax.value_and_grad(jf))(cast(case["params"]))
         leaves = [np.asarray(a) for a in jax.tree.leaves(g)]
     assert loss.dtype == f64 and all(a.dtype == np.float64 for a in leaves)
     return dict(loss=float(loss), grads=leaves)
@@ -232,14 +233,20 @@ def _adam_first_update(g):
 
 
 def test_one_wp_train_step_matches_jax(case, truth, monkeypatch):
-    monkeypatch.setattr(PC, "INTERPRET", True)
-    monkeypatch.setattr(JO, "PAIR_PACK", True)
+    """JAX's step is what its make_train_step runs, taken from the module
+    fixture's own wp run: the loss, new BN state and gradient of
+    value_and_grad on the pair-packed forward, then optax's Adam and
+    params + updates."""
     monkeypatch.setattr(TO, "PAIR_PACK", True)
-    params, state = case["params"], case["state"]
-    jopt = JOpt.adam_init(params)
-    jp, js, jopt, jl = j_make_train_step()(
-        jax.tree.map(jnp.array, params), jax.tree.map(jnp.array, state),
-        jopt, jnp.asarray(case["x"]), LR)
+    params = case["params"]
+
+    @jax.jit          # op by op, each leaf's shape would compile anew
+    def adam_step(p, g):
+        u, opt = JOpt.adam_update(g, JOpt.adam_init(p), LR)
+        return jax.tree.map(lambda a, b: a + b, p, u), opt
+
+    jp, jopt = adam_step(params, case["grads"])
+    js, jl = case["state_new"], case["loss"]
     tp, ts = _port(case)
     p0 = tree_map(torch.clone, tp)
     topt0 = JOpt.adam_init(params)

@@ -67,6 +67,17 @@ J_FWD = jax.jit(JO.onet_forward, static_argnames=("train",))
 J_SMOOTH = jax.jit(JZ._smooth_noise, static_argnums=(1, 2))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these tiny tensors: where several test
+    processes share the cores, a parallel region waits for threads that
+    are not scheduled and a millisecond op takes tens of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tree(tree):
     """A port tree as the JAX package's (the same nesting), copied."""
     return jax.tree.map(lambda t: jnp.asarray(np.array(t.numpy(),
