@@ -80,6 +80,27 @@ Phases, each fatal on failure:
      options on the test thumbnails equal to their CPU runs;
      choose_best_preprocess on 5; generation, step, augmentation, epoch,
      eval and dehaze times, the host share and the peak memory.
+  9. the serving and data surfaces (``serving_surfaces``) at full width
+     (phase 3's model, bf16, pair-packed, tile 512, halo 32, batch 8):
+     POST /segment?scene=1 through the daemon with a 2000x3000 scene (24
+     windows of 576^2, 3 batches), again with normalize=1, and a 300x420
+     scene (one padded window), each request's launches asserted (6/3,
+     6/3, 2/1) and its mask equal to a direct infer_tiled call; every
+     launch of one window batch (N=16) against its plain version; tiled
+     against whole-scene masks (>= 0.97); a 2048^2 RGB scene at
+     in_channels=3 (launches 4/2); the request p50, megapixels/s and the
+     idle share of one tiled scene. The base-64 bf16 folded graph exported
+     as a single-file artifact (symbolic batch), loaded afresh on the card
+     and served over HTTP (8, 8, 8 and 5 frames): masks >= 0.999 and S
+     within one bf16 rounding of the live stacked step, no hand-written
+     kernel launched, a corrupted copy refused, its step timed beside the
+     live ones. Phase 6's last checkpoint out through
+     export_torch_checkpoint and back, bit-equal, serving equal masks. A
+     dataset of phase 6's shape generated on the card, written as the
+     reference's .pt and as a tile store, read back bit-equal, the store's
+     open, zero-copy load and host->card copy timed against torch.load;
+     verify_dataset on the .pt with its base-64 eval on the card. Files
+     under runs/chip_smoke_phase9, removed at the end.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -160,14 +181,15 @@ def bound(nin: int, n: int, dtype, *, stats=False, dw=False) -> tuple:
 
 
 def breakdown(fn, label: str, top: int = 10, kernels: int | None = None,
-              tries: int = 3, host: bool = True):
+              tries: int = 3, host: bool = True) -> dict:
     """Device time by kernel over one call, from torch.profiler; the wall
     time includes the profiler's own cost. Short spin kernels before and
     after the call (left out of the sums) keep its records off both ends
     of the trace. With ``kernels``, the launches one call makes, a profile
     that missed some is taken again, up to ``tries`` times; the log line
     says if it stays short. ``host=False`` traces the card's activity
-    only."""
+    only. Returns the wall and busy ms, the idle share and the kernel
+    count."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -198,6 +220,8 @@ def breakdown(fn, label: str, top: int = 10, kernels: int | None = None,
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<3d} {e.key[:100]}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernels": count}
 
 
 def timed(fn, prefix: str = "", kernels: int | None = None) -> dict:
@@ -560,16 +584,14 @@ def get_json(url: str) -> dict:
         return json.loads(resp.read())
 
 
-def serve(TC, dev) -> dict:
-    from onet_tpu_torch.core.policy import BF16_COMPUTE, DEFAULT
-    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+def serving_model(dev, in_channels: int = 1, seed: int = SEED) -> tuple:
+    """The served Onet: base 64, seeded weights, and non-trivial running
+    statistics drawn from the same generator, so folding is exercised."""
     from onet_tpu_torch.models.onet import onet_init
-    from onet_tpu_torch.models.unet import param_count
-    from onet_tpu_torch.serve.http import ServingSession, start_server
 
-    gen = torch.Generator().manual_seed(SEED)
-    params, state = onet_init(gen, 1, base=64)
-    # non-trivial running statistics, so folding is exercised
+    gen = torch.Generator().manual_seed(seed)
+    params, state = onet_init(gen, in_channels, base=64, device=dev)
+
     def perturb(tree):
         if "var" in tree:
             c = tree["var"].shape
@@ -577,7 +599,16 @@ def serve(TC, dev) -> dict:
                     "var": (0.5 + torch.rand(c, generator=gen)).to(dev)}
         return {k: perturb(v) for k, v in tree.items()}
 
-    state = perturb(state)
+    return params, perturb(state)
+
+
+def serve(TC, dev) -> dict:
+    from onet_tpu_torch.core.policy import BF16_COMPUTE, DEFAULT
+    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+    from onet_tpu_torch.models.unet import param_count
+    from onet_tpu_torch.serve.http import ServingSession, start_server
+
+    params, state = serving_model(dev)
     folded = fold_onet(params, state)
     log(f"[serve] Onet base 64, {param_count(params)} params, seed {SEED}")
 
@@ -2374,6 +2405,475 @@ def zy3_workload(TC, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving and data surfaces
+# ---------------------------------------------------------------------------
+
+TILE, HALO = 512, 32               # tiled serving: 576^2 windows
+SCENE_HW = (2000, 3000)            # 4 x 6 = 24 windows, 3 batches of 8
+SMALL_HW = (300, 420)              # smaller than one window: padded, 1 batch
+RGB_HW = 2048                      # a ZY-3-shaped RGB scene: 16 windows
+SCENE_BATCH = 8                    # phase 3's serving batch
+SCENE_REPEATS = 5                  # requests of the large scene for its p50
+ART_REQUESTS = (8, 8, 8, 5)        # frames per request to the artifact
+# launches of one window batch through the pair-packed serving step
+WINDOW_LAUNCHES = {"conv3x3_wp": 2, "conv3x3_wp2": 1}
+BF16_ROUNDING = 2.0 ** -8          # one bf16 rounding of a value <= 1
+PHASE9_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "runs", "chip_smoke_phase9")
+
+
+def scene(h: int, w: int, seed: int) -> np.ndarray:
+    """A [h, w, 1] float32 scene in [0, 1]: ``frames``' clutter and
+    blobs (one per 40,000 pixels) at any size."""
+    rng = np.random.default_rng(seed)
+    img = 0.3 + 0.1 * rng.standard_normal((h, w)).astype(np.float32)
+    for _ in range(max(6, h * w // 40_000)):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(8, 40)
+        y0, y1 = max(int(cy - 4 * r), 0), min(int(cy + 4 * r) + 1, h)
+        x0, x1 = max(int(cx - 4 * r), 0), min(int(cx + 4 * r) + 1, w)
+        yy = np.arange(y0, y1, dtype=np.float32)[:, None]
+        xx = np.arange(x0, x1, dtype=np.float32)[None, :]
+        img[y0:y1, x0:x1] += 0.5 * np.exp(
+            -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+    return np.clip(img, 0, 1)[..., None]
+
+
+def window_batches(h: int, w: int) -> int:
+    from onet_tpu_torch.serve.tiles import _plan
+
+    n = len(_plan(h, TILE)) * len(_plan(w, TILE))
+    return -(-n // SCENE_BATCH)
+
+
+def serve_counts(TC) -> dict:
+    """The serving step's launch counters (launch_counts' first two)."""
+    counts = launch_counts(TC)
+    return {k: counts[k] for k in WINDOW_LAUNCHES}
+
+
+def want_launches(h: int, w: int) -> dict:
+    return {k: v * window_batches(h, w) for k, v in WINDOW_LAUNCHES.items()}
+
+
+def newest_checkpoint(out_root: str) -> str:
+    """The last milestone phase 6's driver saved."""
+    import glob
+
+    found = glob.glob(os.path.join(out_root, "onet_rayleigh_epoch_*.npz"))
+    if not found:
+        raise AssertionError(f"no milestone in {os.listdir(out_root)}")
+    return max(found, key=lambda p: int(
+        re.search(r"_epoch_(\d+)_", os.path.basename(p)).group(1)))
+
+
+def check_window_batch(TC, step, folded, x) -> float:
+    """Every launch of one window batch ([8, 576, 576, 1] -> N=16 packed
+    samples) captured as the step gives it to the kernels and held to its
+    plain version at conv_err's tolerances; returns the largest error."""
+    ops = step_operands(TC, lambda: step(folded, x))
+    seen, err = {}, 0.0
+    for _, xs, taps, bias, bias_relu, stats, _ in ops:
+        name = "conv3x3_wp" if len(xs) == 1 else "conv3x3_wp2"
+        n, h, wp, _ = xs[0].shape
+        if (n, h, 2 * wp) != (2 * SCENE_BATCH, TILE + 2 * HALO,
+                              TILE + 2 * HALO) or stats:
+            raise AssertionError(f"window launch {name} at {(n, h, wp)}, "
+                                 f"stats={stats}")
+        ws = [TC.make_wc_we(t, dtype=t.dtype) for t in taps]
+        err = max(err, conv_err(TC, name, xs, ws, bias,
+                                f"{name} in a window batch N={n} "
+                                f"{h}x{2 * wp}", bias_relu=bias_relu))
+        seen[name] = seen.get(name, 0) + 1
+    if seen != WINDOW_LAUNCHES:
+        raise AssertionError(f"window batch launches {seen}, expected "
+                             f"{WINDOW_LAUNCHES}")
+    return err
+
+
+def serve_in_thread(sess):
+    """Start the daemon on an ephemeral localhost port: (httpd, thread,
+    url)."""
+    from onet_tpu_torch.serve.http import start_server
+
+    httpd = start_server(sess, 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, th, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_server(httpd, th) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    th.join(timeout=30)
+    if th.is_alive():
+        raise AssertionError("HTTP server thread did not stop")
+
+
+def tiled_scenes(TC, dev, res) -> None:
+    """Phase 9, step 1: POST /segment?scene=1 through the daemon (the
+    2000x3000 scene, again with normalize=1, the 300x420 scene), each
+    request's launches counted and asserted, its mask equal to a direct
+    infer_tiled call; one window batch's launches held to their plain
+    versions; tiled against whole-scene masks; the 2048^2 RGB scene
+    through infer_tiled; times and the device idle share."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.core.prng import make_generator
+    from onet_tpu_torch.data.zy3 import synthesize_zy3
+    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+    from onet_tpu_torch.ops.normalize import minmax_per_frame
+    from onet_tpu_torch.serve.http import ServingSession
+    from onet_tpu_torch.serve.tiles import _plan, infer_tiled
+
+    folded = fold_onet(*serving_model(dev))
+
+    def step(f, xb):
+        return onet_infer(f, xb, policy=BF16_COMPUTE, pair_pack=True)
+
+    def tiled(f, x):
+        return infer_tiled(step, f, x, tile=TILE, halo=HALO,
+                           batch=SCENE_BATCH, device=dev)
+
+    win = TILE + 2 * HALO
+    big = scene(*SCENE_HW, SEED + 90)
+    small = scene(*SMALL_HW, SEED + 91)
+    sess = ServingSession(step, folded, batch=SCENE_BATCH, in_channels=1,
+                          mode="bf16", model_name=f"random-seed-{SEED}",
+                          tile=TILE, halo=HALO)
+    sess.warmup()
+    if sess.input_hw != (win, win):
+        raise AssertionError(f"warmed at {sess.input_hw}, not the window")
+    big_name = "x".join(map(str, SCENE_HW))
+    requests = [(big_name, big, ""),
+                (big_name + " normalize=1", 3.0 + 6.0 * big, "&normalize=1"),
+                ("x".join(map(str, SMALL_HW)), small, "")]
+    httpd, th, url = serve_in_thread(sess)
+    masks, big_ms = [], []
+    res["scene_launches"] = {}
+    try:
+        for name, sc, query in requests:
+            reset_counts(TC)
+            t0 = time.perf_counter()
+            masks.append(post(url + "/segment?scene=1" + query, sc))
+            ms = (time.perf_counter() - t0) * 1e3
+            got = serve_counts(TC)
+            res["scene_launches"][name] = got
+            want = want_launches(*sc.shape[:2])
+            log(f"[scene] POST /segment?scene=1 {name}: {ms:.2f} ms, "
+                f"launches {got}")
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, expected "
+                                     f"{want}")
+            if name == big_name:
+                big_ms.append(ms)
+        for _ in range(SCENE_REPEATS - 1):
+            t0 = time.perf_counter()
+            post(url + "/segment?scene=1", big)
+            big_ms.append((time.perf_counter() - t0) * 1e3)
+        stats = get_json(url + "/stats")
+        health = get_json(url + "/healthz")
+    finally:
+        stop_server(httpd, th)
+    log(f"[scene] healthz {health}; stats {stats}")
+    if health["tile"] != TILE or stats["errors"]:
+        raise AssertionError("healthz/stats disagree with the requests")
+
+    with torch.inference_mode():
+        big_dev = torch.from_numpy(big).to(dev)
+        norm_dev = minmax_per_frame(
+            torch.from_numpy(3.0 + 6.0 * big).to(dev)[None])[0]
+        for (name, sc, _), m, x in zip(requests, masks,
+                                       (big_dev, norm_dev, small)):
+            direct = tiled(folded, x)
+            if m.shape != (1, *sc.shape[:2]) or m.dtype != np.uint8 or \
+                    not np.array_equal(m[0], direct.astype(np.uint8)):
+                raise AssertionError(f"{name}: the daemon's mask differs "
+                                     "from a direct infer_tiled call")
+        # the scene's first window batch, as infer_tiled slices it
+        h, w = SCENE_HW
+        corners = [(min(max(y - HALO, 0), h - win),
+                    min(max(x - HALO, 0), w - win))
+                   for y in _plan(h, TILE) for x in _plan(w, TILE)]
+        chunk = torch.stack([big_dev[y:y + win, x:x + win]
+                             for y, x in corners[:SCENE_BATCH]])
+        res["window_max_abs_err"] = check_window_batch(TC, step, folded,
+                                                       chunk)
+        res["window_batch_ms"] = cuda_ms(lambda: step(folded, chunk),
+                                         reps=5, warmup=1)
+        del chunk
+        _, whole = step(folded, big_dev[None])
+        res["tiled_vs_whole"] = float(
+            (whole[0].cpu().numpy() == masks[0][0]).mean())
+        del whole
+        torch.cuda.empty_cache()
+    log(f"[scene] tiled against whole-scene pair-packed masks, {big_name}: "
+        f"agreement {res['tiled_vs_whole']:.6f} (>= 0.97); foreground "
+        f"share {masks[0].mean():.4f}")
+    if not res["tiled_vs_whole"] >= 0.97:
+        raise AssertionError(f"tiled/whole agreement {res['tiled_vs_whole']}")
+
+    mp = SCENE_HW[0] * SCENE_HW[1] / 1e6
+    res["scene_request_ms"] = big_ms
+    res["scene_request_ms_p50"] = float(np.median(big_ms))
+    res["scene_mp_per_s"] = mp / res["scene_request_ms_p50"] * 1e3
+    res["scene_server_ms_p50"] = stats["total_ms"]["p50"]
+    res["tiled_scene_ms"] = cuda_ms(lambda: tiled(folded, big_dev), reps=5,
+                                    warmup=1)
+    res["tiled_scene_profile"] = breakdown(
+        lambda: tiled(folded, big_dev), "tiled 2000x3000 scene, 3 window "
+        "batches of 8 at 576^2, bf16 wp", top=8)
+    del folded, big_dev, norm_dev
+    torch.cuda.empty_cache()
+
+    # a ZY-3-shaped RGB scene through infer_tiled at in_channels=3
+    folded3 = fold_onet(*serving_model(dev, in_channels=3, seed=SEED + 3))
+    ds, _ = synthesize_zy3(make_generator(SEED + 92, dev), n=1, size=RGB_HW)
+    rgb = ds["imgs"][0]
+    tiled(folded3, rgb)                      # first call at this shape
+    reset_counts(TC)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_rgb = tiled(folded3, rgb)
+    res["rgb_scene_ms"] = (time.perf_counter() - t0) * 1e3
+    res["rgb_launches"] = serve_counts(TC)
+    want = want_launches(RGB_HW, RGB_HW)
+    log(f"[scene] {RGB_HW}^2 RGB scene through infer_tiled: "
+        f"{res['rgb_scene_ms']:.2f} ms, launches {res['rgb_launches']}, "
+        f"foreground share {m_rgb.mean():.4f}")
+    if res["rgb_launches"] != want:
+        raise AssertionError(f"RGB launches {res['rgb_launches']}, "
+                             f"expected {want}")
+    if m_rgb.shape != (RGB_HW, RGB_HW) or not set(np.unique(m_rgb)) <= {0, 1}:
+        raise AssertionError(f"RGB mask {m_rgb.shape}")
+    del folded3, ds, rgb
+    torch.cuda.empty_cache()
+
+
+def artifact_serving(TC, dev, res) -> None:
+    """Phase 9, step 2: the base-64 folded bf16 graph at 512^2 exported
+    with a symbolic batch, loaded afresh on the card and served over HTTP
+    (3 requests of 8 frames, one of 5); its masks and S against the live
+    stacked step; a corrupted copy refused; its step timed beside the live
+    ones."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+    from onet_tpu_torch.serve.artifact import (export_serving_artifact,
+                                               load_serving_artifact)
+    from onet_tpu_torch.serve.http import ServingSession
+
+    params, state = serving_model(dev)
+    folded = fold_onet(params, state)
+    path = os.path.join(PHASE9_DIR, "onet_base64_512_bf16.onetp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = export_serving_artifact(params, state, path, input_hw=(H, W),
+                                   policy=BF16_COMPUTE)
+    res["artifact_export_s"] = time.perf_counter() - t0
+    res["artifact_bytes"] = os.path.getsize(path)
+    del params, state
+    t0 = time.perf_counter()
+    call, meta_read = load_serving_artifact(path)
+    res["artifact_load_s"] = time.perf_counter() - t0
+    log(f"[artifact] exported in {res['artifact_export_s']:.2f} s, "
+        f"{res['artifact_bytes']} bytes, loaded in "
+        f"{res['artifact_load_s']:.2f} s; header {meta_read}")
+    if meta_read != meta or meta["batch"] != "symbolic" or \
+            meta["device"] != dev.type or meta["arithmetic"] != "bfloat16":
+        raise AssertionError(f"artifact header {meta_read}")
+
+    sess = ServingSession(lambda _, xb: call(xb), None, batch=SCENE_BATCH,
+                          in_channels=1, mode="bf16-artifact",
+                          model_name=os.path.basename(path), input_hw=(H, W))
+    sess.warmup()
+    reqs = [frames(n, SEED + 100 + i) for i, n in enumerate(ART_REQUESTS)]
+    httpd, th, url = serve_in_thread(sess)
+    try:
+        reset_counts(TC)
+        masks = [post(url + "/segment", r) for r in reqs]
+        launches = serve_counts(TC)
+        stats = get_json(url + "/stats")
+    finally:
+        stop_server(httpd, th)
+    if any(launches.values()):
+        raise AssertionError(f"the artifact launched {launches}: it is the "
+                             "stacked graph")
+    if stats["requests"] != len(reqs) or stats["frames"] != sum(ART_REQUESTS):
+        raise AssertionError(f"stats {stats}")
+    agree, s_err = [], 0.0
+    with torch.inference_mode():
+        for r, m in zip(reqs, masks):
+            n = r.shape[0]
+            x = torch.from_numpy(np.concatenate(
+                [r] + [r[-1:]] * (SCENE_BATCH - n))).to(dev)
+            s_art, l_art = call(x)
+            s_live, l_live = onet_infer(folded, x, policy=BF16_COMPUTE,
+                                        pair_pack=False)
+            if m.shape != (n, H, W) or not np.array_equal(
+                    m, l_art[:n].cpu().numpy().astype(np.uint8)):
+                raise AssertionError("HTTP masks differ from the artifact")
+            agree.append(float((l_art[:n] == l_live[:n]).float().mean()))
+            s_err = max(s_err, (s_art - s_live).abs().max().item())
+    res["artifact_agreement"] = min(agree)
+    res["artifact_s_max_abs_err"] = s_err
+    log(f"[artifact] {len(reqs)} requests of {list(ART_REQUESTS)} frames: "
+        f"masks agree with the live stacked step on {agree}, max |S_art - "
+        f"S_live| {s_err:.3e}; stats {stats}")
+    if min(agree) < 0.999 or not s_err <= BF16_ROUNDING:
+        raise AssertionError("the artifact disagrees with the live step")
+
+    bad = path + ".corrupt"
+    data = bytearray(open(path, "rb").read())
+    data[-100] ^= 0xFF
+    with open(bad, "wb") as f:
+        f.write(bytes(data))
+    del data
+    try:
+        load_serving_artifact(bad)
+    except ValueError as e:
+        if "checksum" not in str(e):
+            raise
+        log(f"[artifact] a copy with one flipped byte: {e}")
+    else:
+        raise AssertionError("a corrupted artifact loaded")
+
+    x8 = torch.from_numpy(reqs[0]).to(dev)
+    res["artifact_step_ms"] = cuda_ms(lambda: call(x8), reps=5, warmup=2)
+    res["live_stacked_step_ms"] = cuda_ms(lambda: onet_infer(
+        folded, x8, policy=BF16_COMPUTE, pair_pack=False), reps=5, warmup=2)
+    res["live_wp_step_ms"] = cuda_ms(lambda: onet_infer(
+        folded, x8, policy=BF16_COMPUTE, pair_pack=True), reps=5, warmup=2)
+    log(f"[artifact] batch 8 at 512^2 bf16: artifact "
+        f"{res['artifact_step_ms']:.3f} ms, live stacked "
+        f"{res['live_stacked_step_ms']:.3f} ms, live pair-packed "
+        f"{res['live_wp_step_ms']:.3f} ms")
+    del call, folded, x8
+    torch.cuda.empty_cache()
+
+
+def bridge_round_trip(dev, res, ckpt: str) -> None:
+    """Phase 9, step 3: phase 6's trained checkpoint out to the reference's
+    schema and back, bit for bit, and the masks both serve equal."""
+    from onet_tpu_torch.core.bridge import (export_torch_checkpoint,
+                                            import_torch_checkpoint,
+                                            load_onet_npz)
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+    from onet_tpu_torch.models.unet import tree_leaves
+
+    params, state, epoch = load_onet_npz(ckpt)
+    pt = os.path.join(PHASE9_DIR, "onet_phase6.pytorch")
+    t0 = time.perf_counter()
+    export_torch_checkpoint(pt, params, state, epoch)
+    res["bridge_export_s"] = time.perf_counter() - t0
+    p2, s2, e2 = import_torch_checkpoint(pt)
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*tree_leaves(params), *tree_leaves(state)],
+        [*tree_leaves(p2), *tree_leaves(s2)]))
+    x = torch.from_numpy(frames(SCENE_BATCH, SEED + 110)).to(dev)
+    with torch.inference_mode():
+        l1 = onet_infer(fold_onet(params, state), x, policy=BF16_COMPUTE,
+                        pair_pack=True)[1]
+        l2 = onet_infer(fold_onet(p2, s2), x, policy=BF16_COMPUTE,
+                        pair_pack=True)[1]
+    res["bridge_bit_equal"] = same and e2 == epoch
+    res["bridge_masks_equal"] = bool(torch.equal(l1, l2))
+    log(f"[bridge] {os.path.basename(ckpt)} (epoch {epoch}) -> "
+        f"{os.path.getsize(pt)} bytes in {res['bridge_export_s']:.2f} s -> "
+        f"back: bit-equal {res['bridge_bit_equal']}, served masks equal "
+        f"{res['bridge_masks_equal']}")
+    if not (res["bridge_bit_equal"] and res["bridge_masks_equal"]):
+        raise AssertionError("the bridge round trip changed the model")
+
+
+def data_files(dev, res) -> None:
+    """Phase 9, step 4: a dataset of phase 6's shape generated on the card,
+    written as the reference's .pt and as a tile store, both read back
+    bit-equal; the store's open, zero-copy load and host->card copy timed
+    against torch.load; verify_dataset on the .pt with its base-64 eval on
+    the card."""
+    from onet_tpu_torch.core.prng import RngStream
+    from onet_tpu_torch.data.export import export_simclutter_pt
+    from onet_tpu_torch.data.tilestore import (load_store, native_available,
+                                               save_store)
+    from onet_tpu_torch.data.verify import format_report, verify_dataset
+    from onet_tpu_torch.sim.rayleigh import generate_rayleigh_dataset
+
+    if not native_available():
+        raise AssertionError("the native tile store did not build")
+    ds = generate_rayleigh_dataset(RngStream(SEED + 120).next(),
+                                   levels=SIM_LEVELS,
+                                   frames_per_level=SIM_FRAMES, crop=SIM_CROP)
+    pt = os.path.join(PHASE9_DIR, "rayleigh.pt")
+    store = os.path.join(PHASE9_DIR, "rayleigh.ts")
+    t = {}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    clock("pt_write_ms", lambda: export_simclutter_pt(pt, ds))
+    if clock("store_write_ms", lambda: save_store(store, ds)) != store:
+        raise AssertionError("the store fell back to .npz")
+    d = clock("pt_load_ms", lambda: torch.load(pt, map_location="cpu",
+                                               weights_only=True))
+    clock("pt_to_card_ms", lambda: {k: d[k].to(dev) for k in
+                                    ("rayleigh_imgs", "rayleigh_labels")})
+    views = clock("store_open_ms", lambda: load_store(store, copy=False,
+                                                      device="cpu"))
+    on_card = clock("store_to_card_ms", lambda: {k: v.to(dev) for k, v in
+                                                 views.items()})
+    direct = clock("store_load_to_card_ms", lambda: load_store(store))
+    ok = (torch.equal(d["rayleigh_imgs"],
+                      ds["imgs"].permute(0, 3, 1, 2).cpu())
+          and torch.equal(d["rayleigh_labels"], ds["labels"].cpu())
+          and d["psnr"] == ds["psnr"].tolist()
+          and all(torch.equal(on_card[k], ds[k]) and
+                  torch.equal(direct[k], ds[k]) for k in ds))
+    nbytes = sum(v.numel() * v.element_size() for v in ds.values())
+    log(f"[data] {len(ds['imgs'])} frames of {SIM_CROP}^2 ({nbytes} bytes): "
+        f".pt {os.path.getsize(pt)} bytes, store {os.path.getsize(store)} "
+        f"bytes, both read back bit-equal: {ok}; ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    if not ok:
+        raise AssertionError("a data file did not read back bit-equal")
+    del d, views, on_card, direct
+    t0 = time.perf_counter()
+    report = verify_dataset(pt)
+    t["verify_ms"] = (time.perf_counter() - t0) * 1e3
+    log(format_report(report))
+    if not report["ok"] or report["eval"]["batch"] != [2, SIM_CROP,
+                                                       SIM_CROP, 1] or \
+            not np.isfinite(report["eval"]["loss"]):
+        raise AssertionError(f"verify_dataset: {report}")
+    res["data_ms"] = t
+    res["data_bytes"] = nbytes
+    res["verify_loss"] = report["eval"]["loss"]
+
+
+def serving_surfaces(TC, dev, ckpt: str) -> dict:
+    """Phase 9: the serving and data surfaces at full width (base 64, bf16,
+    pair-packed, tile 512, halo 32, batch 8): tiled scenes through the
+    daemon's ?scene=1 and infer_tiled, the single-file artifact, the
+    bridge back to the reference on phase 6's checkpoint ``ckpt``, the .pt
+    export, the tile store and the verifier. Its files go to PHASE9_DIR,
+    removed at the end."""
+    res = {}
+    os.makedirs(PHASE9_DIR, exist_ok=True)
+    try:
+        tiled_scenes(TC, dev, res)
+        artifact_serving(TC, dev, res)
+        bridge_round_trip(dev, res, ckpt)
+        data_files(dev, res)
+    finally:
+        shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -2438,6 +2938,8 @@ def main() -> int:
     log(f"[phase6] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    os.makedirs(PHASE9_DIR, exist_ok=True)
+    ckpt = shutil.copy(newest_checkpoint(sim["out_root"]), PHASE9_DIR)
     with pair_pack(O, True):
         try:
             det = detection_workload(TC, dev, sim["out_root"])
@@ -2468,6 +2970,21 @@ def main() -> int:
         f"{zy3['step_ms']:.3f} ms + augmentation {zy3['aug_ms']:.3f} ms; on "
         f"{card}")
     log(f"[phase8] phase took {zy3['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    surf = serving_surfaces(TC, dev, ckpt)
+    surf["phase_s"] = time.perf_counter() - t0
+    log("[surfaces] " + json.dumps(surf))
+    log(f"[surfaces] tiled 2000x3000 scene over HTTP, bf16 pair-packed, "
+        f"tile {TILE} halo {HALO} batch {SCENE_BATCH}: p50 "
+        f"{surf['scene_request_ms_p50']:.2f} ms "
+        f"({surf['scene_mp_per_s']:.2f} megapixels/s), infer_tiled alone "
+        f"{surf['tiled_scene_ms']:.2f} ms, idle share "
+        f"{surf['tiled_scene_profile']['idle_share']:.3f}; tiled/whole "
+        f"agreement {surf['tiled_vs_whole']:.6f}; artifact step "
+        f"{surf['artifact_step_ms']:.3f} ms vs live stacked "
+        f"{surf['live_stacked_step_ms']:.3f} ms; on {card}")
+    log(f"[phase9] phase took {surf['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -2531,6 +3048,14 @@ def main() -> int:
         if row["name"] in zy3_launches:
             row["zy3_launches"] = zy3_launches[row["name"]]
             row["zy3_max_abs_err"] = zy3["kernel_errs"][row["name"]]
+    # phase 9's launches through the tiled path: the three scene requests
+    # and the RGB scene (the serving epilogue at 576^2 windows, N=16), and
+    # the largest error of one window batch's launches
+    for row in rows[:len(KERNELS)]:
+        row["scene_launches"] = sum(
+            c[row["name"]] for c in (*surf["scene_launches"].values(),
+                                     surf["rgb_launches"]))
+        row["scene_max_abs_err"] = surf["window_max_abs_err"]
     rows += phase5_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

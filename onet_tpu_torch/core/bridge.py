@@ -9,12 +9,16 @@
   ``dwnu.*``, OIHW; ``onet_tpu/core/torch_import.py``), so reference
   ``.pytorch`` weights serve too; ``import_torch_checkpoint`` reads such a
   file (its save schemas or a bare state_dict).
+* ``export_torch_state`` / ``export_torch_checkpoint``: the way back, the
+  port's trees as a reference ``state_dict`` and its ``{"net", "epoch"}``
+  file, so a model trained on the card runs in the reference's scripts.
 * ``adam_state_from_jax``: the JAX ``adam_init``/``adam_update`` state
   (optax's count, mu, nu, as numpy) to the port's Adam state, so a run can
   start both frameworks from the same params, BN state and optimizer state.
 
 Every loader puts the tensors on ``device``: the card by default, raising
-without one.
+without one. The exporters take trees on any device and return CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -199,3 +203,66 @@ def import_torch_checkpoint(path: str, *, weight_share=None, device=None):
     params, state = import_torch_state(sd, weight_share=weight_share,
                                        device=device)
     return params, state, epoch
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    """A float32 CPU copy that owns its memory (off the card first)."""
+    return t.detach().to("cpu", torch.float32, copy=True,
+                         memory_format=torch.contiguous_format)
+
+
+def _export_double_conv(sd, prefix: str, p, s):
+    sd[prefix + "0.weight"] = _cpu(p["conv1"]["w"].permute(3, 2, 0, 1))
+    sd[prefix + "1.weight"] = _cpu(p["bn1"]["scale"])
+    sd[prefix + "1.bias"] = _cpu(p["bn1"]["bias"])
+    sd[prefix + "1.running_mean"] = _cpu(s["bn1"]["mean"])
+    sd[prefix + "1.running_var"] = _cpu(s["bn1"]["var"])
+    sd[prefix + "3.weight"] = _cpu(p["conv2"]["w"].permute(3, 2, 0, 1))
+    sd[prefix + "4.weight"] = _cpu(p["bn2"]["scale"])
+    sd[prefix + "4.bias"] = _cpu(p["bn2"]["bias"])
+    sd[prefix + "4.running_mean"] = _cpu(s["bn2"]["mean"])
+    sd[prefix + "4.running_var"] = _cpu(s["bn2"]["var"])
+
+
+def _export_unet(sd, unet: str, p, s):
+    _export_double_conv(sd, f"{unet}.inc.double_conv.", p["inc"], s["inc"])
+    for i in range(1, 5):
+        _export_double_conv(sd, f"{unet}.down{i}.maxpool_conv.1.double_conv.",
+                            p[f"down{i}"], s[f"down{i}"])
+    for i in range(1, 5):
+        up = p[f"up{i}"]["up"]
+        sd[f"{unet}.up{i}.up.weight"] = _cpu(up["w"].permute(2, 3, 0, 1))
+        sd[f"{unet}.up{i}.up.bias"] = _cpu(up["b"])
+        _export_double_conv(sd, f"{unet}.up{i}.conv.double_conv.",
+                            p[f"up{i}"]["conv"], s[f"up{i}"]["conv"])
+
+
+def export_torch_state(params, state):
+    """Inverse of :func:`import_torch_state`: the reference-schema
+    state_dict of the port's trees, as float32 CPU tensors (conv weights
+    OIHW, transposed-conv weights IOHW). A weight-shared tree emits both
+    ``topu.*`` and ``dwnu.*``, the same tensors under both names (the
+    reference's shared model registers one UNet twice, so a strict
+    ``load_state_dict`` expects both). ``num_batches_tracked`` is an int64
+    zero (the reference's BatchNorm uses a fixed momentum, so the counter
+    is inert)."""
+    sd = {}
+    _export_unet(sd, "topu", params["top"], state["top"])
+    if "down" in params:
+        _export_unet(sd, "dwnu", params["down"], state["down"])
+    else:
+        sd.update({"dwnu" + k[len("topu"):]: v for k, v in list(sd.items())})
+    for k in [k for k in sd if k.endswith("running_mean")]:
+        sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.int64)
+    return sd
+
+
+def export_torch_checkpoint(path: str, params, state, epoch: int = 0):
+    """Save the port's trees as a reference-loadable checkpoint
+    (``{"net": state_dict, "epoch": N}``), which the reference's own
+    scripts load with ``onet.load_state_dict(torch.load(f)['net'])``.
+    Returns ``path``."""
+    torch.save({"net": export_torch_state(params, state),
+                "epoch": int(epoch)}, path)
+    return path

@@ -5,15 +5,17 @@
                     [H, W], [H, W, C], [B, H, W] or [B, H, W, C].
                     Response = ``.npy`` uint8 masks [B, H, W]. Query params:
                       ?normalize=1  per-frame min-max first
-                      ?scene=1      tiled scenes: not in the port yet, so it
-                                    answers 400 as the JAX daemon does when
-                                    it was started without --tile
+                      ?scene=1      each frame is a scene of any size,
+                                    served through the tiled path
+                                    (``serve/tiles.py``); only when the
+                                    session has a ``tile``, else 400
     GET  /healthz   JSON: model, mode, batch, warm state
     GET  /stats     JSON: request/frame counts, device + end-to-end latency
                     percentiles
 
 Requests of any batch size run in fixed ``batch``-sized chunks (the last
-one padded). The device step is serialized by a lock; the HTTP layer is a
+one padded); scenes run in batches of ``tile + 2*halo`` windows, one shape
+too. The device step is serialized by a lock; the HTTP layer is a
 ``ThreadingHTTPServer`` so health and stats probes never wait behind it.
 """
 
@@ -31,23 +33,28 @@ import torch
 
 from onet_tpu_torch.core.device import resolve_device
 from onet_tpu_torch.ops.normalize import minmax_per_frame
+from onet_tpu_torch.serve.tiles import infer_tiled
 
 
 class ServingSession:
     """Owns the warm serving step and its statistics.
 
     ``step(model_arg, x)`` takes an NHWC float32 batch on ``device`` and
-    returns (S, labels), as ``onet_infer`` does."""
+    returns (S, labels), as ``onet_infer`` does. With ``tile`` the session
+    also serves scenes (``segment_scenes``) in windows of
+    ``tile + 2*halo``."""
 
     def __init__(self, step, model_arg, *, batch: int, in_channels: int,
-                 mode: str = "bf16", model_name: str = "", input_hw=None,
-                 device=None):
+                 mode: str = "bf16", model_name: str = "", tile: int = 0,
+                 halo: int = 32, input_hw=None, device=None):
         self.step = step
         self.model_arg = model_arg
         self.batch = int(batch)
         self.in_channels = int(in_channels)
         self.mode = mode
         self.model_name = model_name
+        self.tile = int(tile)
+        self.halo = int(halo)
         self.input_hw = input_hw          # (H, W) the step was warmed at
         self.device = resolve_device(device)
         self.warm = False
@@ -69,7 +76,10 @@ class ServingSession:
 
     def warmup(self, hw=None):
         """Run the step once (kernel builds, cuDNN plans) so the first
-        request is served at device speed."""
+        request is served at device speed; at the window size with a
+        ``tile``."""
+        if self.tile:
+            hw = (self.tile + 2 * self.halo,) * 2
         hw = hw or self.input_hw or (224, 224)
         self._run(torch.zeros((self.batch, hw[0], hw[1], self.in_channels),
                               device=self.device))
@@ -95,8 +105,25 @@ class ServingSession:
         return np.concatenate(masks)[:n], dev_ms
 
     def segment_scenes(self, imgs: np.ndarray, normalize: bool = False):
-        raise ValueError("daemon started without --tile; ?scene=1 "
-                         "unavailable")
+        """[B, H, W, C] scenes -> ([B, H, W] uint8 masks, device ms): each
+        scene goes to the device once and through ``infer_tiled`` under
+        the step lock."""
+        if not self.tile:
+            raise ValueError("daemon started without --tile; "
+                             "?scene=1 unavailable")
+        out, dev_ms = [], 0.0
+        for scene in imgs:
+            x = torch.from_numpy(np.ascontiguousarray(scene)).to(self.device)
+            if normalize:
+                x = minmax_per_frame(x[None])[0]
+            t0 = time.perf_counter()
+            with self._lock:
+                m = infer_tiled(self.step, self.model_arg, x, tile=self.tile,
+                                halo=self.halo, batch=self.batch,
+                                device=self.device)
+            dev_ms += (time.perf_counter() - t0) * 1e3
+            out.append(m[None].astype(np.uint8))
+        return np.concatenate(out), dev_ms
 
     # -- bookkeeping ---------------------------------------------------------
 
@@ -118,7 +145,7 @@ class ServingSession:
         return {"status": "ok" if self.warm else "warming",
                 "model": self.model_name, "mode": self.mode,
                 "batch": self.batch, "in_channels": self.in_channels,
-                "tile": None, "device": str(self.device),
+                "tile": self.tile or None, "device": str(self.device),
                 "input_hw": list(self.input_hw) if self.input_hw else None,
                 "uptime_s": round(time.time() - self.started, 1)}
 

@@ -519,3 +519,100 @@ def test_zy3_preprocessing_on_the_card_matches_cpu(dev):
     for option in PRE_OPTIONS:
         assert torch.equal(apply_pre_option(u8.to(dev), option).cpu(),
                            apply_pre_option(u8, option)), option
+
+
+def _serving_model(dev, base, seed):
+    """A seeded weight-shared Onet with perturbed BN statistics, folded."""
+    from onet_tpu_torch.models.infer import fold_onet
+    from onet_tpu_torch.models.onet import onet_init
+
+    gen = torch.Generator().manual_seed(seed)
+    params, state = onet_init(gen, 1, base=base, device=dev)
+
+    def perturb(tree):
+        if "var" in tree:
+            c = tree["var"].shape
+            return {"mean": (0.1 * torch.randn(c, generator=gen)).to(dev),
+                    "var": (0.5 + torch.rand(c, generator=gen)).to(dev)}
+        return {k: perturb(v) for k, v in tree.items()}
+
+    state = perturb(state)
+    return params, state, fold_onet(params, state)
+
+
+def test_tiled_scene_matches_host_tiling(dev):
+    """infer_tiled on the card (windows sliced there, mask assembled there,
+    one read) equals the JAX package's algorithm run from the host (windows
+    stacked with numpy, each batch read back) on the same pair-packed bf16
+    step, and launches the pair-packed convs 2 + 1 times a window batch."""
+    import numpy as np
+
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import onet_infer
+    from onet_tpu_torch.serve.tiles import _plan, infer_tiled
+
+    _, _, folded = _serving_model(dev, 64, 50)
+
+    def step(f, xb):
+        return onet_infer(f, xb, policy=BF16_COMPUTE, pair_pack=True)
+
+    tile, halo, batch = 256, 32, 4
+    win = tile + 2 * halo
+    scene = torch.rand((600, 700, 1), generator=torch.Generator()
+                       .manual_seed(51)).numpy()
+    n1, n2 = TC.conv3x3_wp_raw.launches, TC.conv3x3_wp2_raw.launches
+    got = infer_tiled(step, folded, scene, tile=tile, halo=halo,
+                      batch=batch, device=dev)
+    torch.cuda.synchronize()
+    h, w, _ = scene.shape
+    coords = [(y, x, min(max(y - halo, 0), h - win),
+               min(max(x - halo, 0), w - win))
+              for y in _plan(h, tile) for x in _plan(w, tile)]
+    batches = -(-len(coords) // batch)
+    assert TC.conv3x3_wp_raw.launches - n1 == 2 * batches
+    assert TC.conv3x3_wp2_raw.launches - n2 == batches
+    want = np.zeros((h, w), np.int32)
+    with torch.inference_mode():
+        for i in range(0, len(coords), batch):
+            part = coords[i:i + batch]
+            wins = np.stack([scene[wy:wy + win, wx:wx + win]
+                             for _, _, wy, wx in part])
+            wins = np.concatenate([wins] + [wins[-1:]] * (batch - len(part)))
+            labels = step(folded, torch.from_numpy(wins).to(dev))[1].cpu()
+            for j, (y, x, wy, wx) in enumerate(part):
+                ey, ex = min(tile, h - y), min(tile, w - x)
+                want[y:y + ey, x:x + ex] = labels[
+                    j, y - wy:y - wy + ey, x - wx:x - wx + ex].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("export_on", ["cuda", "cpu"])
+def test_artifact_on_the_card_matches_live_stacked(dev, tmp_path, export_on):
+    """An fp32 artifact (base 8, 64x64, symbolic batch), exported on the
+    card or on the CPU and loaded on the card, against the live stacked
+    step on the card: S within 1e-5 (TF32 off on both), labels agreeing
+    on >= 99.9% of the pixels."""
+    from onet_tpu_torch.core.policy import DEFAULT
+    from onet_tpu_torch.models.infer import onet_infer
+    from onet_tpu_torch.models.unet import tree_map
+    from onet_tpu_torch.serve.artifact import (export_serving_artifact,
+                                               load_serving_artifact)
+
+    params, state, folded = _serving_model(dev, 8, 52)
+    if export_on == "cpu":
+        params, state = (tree_map(lambda t: t.cpu(), t)
+                         for t in (params, state))
+    path = str(tmp_path / "m.onetp")
+    meta = export_serving_artifact(params, state, path, input_hw=(64, 64),
+                                   policy=DEFAULT, device=export_on)
+    assert meta["device"] == export_on
+    call, _ = load_serving_artifact(path, device=dev)
+    x = torch.rand((3, 64, 64, 1), generator=torch.Generator()
+                   .manual_seed(53)).to(dev)
+    s, labels = call(x)
+    assert s.device.type == "cuda" and labels.dtype == torch.int32
+    with torch.inference_mode():
+        s_live, l_live = onet_infer(folded, x, policy=DEFAULT,
+                                    pair_pack=False)
+    torch.testing.assert_close(s, s_live, atol=1e-5, rtol=0)
+    assert (labels == l_live).float().mean().item() >= 0.999

@@ -36,7 +36,9 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "train.sweeps", "models.onet", "utils.summary",
                 "preprocess.haze", "preprocess.image",
                 "preprocess.curation", "preprocess.onramp", "report.xlsx",
-                "report.tables", "train.zy3"):
+                "report.tables", "train.zy3", "serve.tiles",
+                "serve.artifact", "data.export", "data.tilestore",
+                "data.verify"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,6 +84,12 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                                                   load_image_u8,
                                                   prepare_zy3_thumbnails)
     from onet_tpu_torch.train import zy3 as Z
+    from onet_tpu_torch.serve.artifact import (export_fn_artifact,
+                                               export_serving_artifact,
+                                               load_serving_artifact)
+    from onet_tpu_torch.serve.tiles import infer_tiled
+    from onet_tpu_torch.data.tilestore import load_store
+    from onet_tpu_torch.data.verify import verify_dataset
 
     gen = torch.Generator().manual_seed(0)
     calls = [
@@ -126,6 +134,14 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: load_image_u8(str(tmp_path / "missing.png")),
         lambda: prepare_zy3_thumbnails([str(tmp_path / "missing.png")]),
         lambda: choose_preprocess(None, None, [], []),
+        lambda: load_serving_artifact(str(tmp_path / "missing.onetp")),
+        lambda: export_serving_artifact({}, {}, str(tmp_path / "a"),
+                                        input_hw=(8, 8)),
+        lambda: export_fn_artifact(None, str(tmp_path / "a"),
+                                   input_hw=(8, 8), in_channels=1),
+        lambda: infer_tiled(None, None, np.zeros((8, 8, 1), np.float32)),
+        lambda: load_store(str(tmp_path / "missing.ts")),
+        lambda: verify_dataset(str(tmp_path / "missing.pt")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
