@@ -101,6 +101,22 @@ Phases, each fatal on failure:
      open, zero-copy load and host->card copy timed against torch.load;
      verify_dataset on the .pt with its base-64 eval on the card. Files
      under runs/chip_smoke_phase9, removed at the end.
+ 10. int8 (``int8_workload``) at full width: phase 6's run resumed to 20
+     epochs (phase 6's own checkpoint is too young for the 0.99 contract;
+     its agreement is reported beside), calibrated on 16 frames of a
+     fresh simclutter train split; mask agreement with the bf16 folded
+     graph on its test split (fatal under 0.99, printed against 0.999)
+     and on 512^2 frames; launches a batch asserted (16 + 4 with the bf16
+     head, 18 + 4 without); every int8 launch of a batch-8 step held on a
+     batch-1 slice against its plain version (int32 sums and int8 codes
+     bit-equal); each site's kernel timed beside its bound, cuDNN's bf16
+     conv (``torch._int_mm`` for the transposed conv) and, at two sites,
+     the plain version; the int8 steps at batch 8 and 32 beside the bf16
+     steps; int8 over HTTP (batch 8) and as an artifact exported on the
+     card (its launches counted, its S equal to the live step's); 5 train
+     steps each of exact, "fwd" and "fwd+dx" at 512^2 batch 8 from phase
+     4's init (18 and 35 launches a step, step-5 loss within 0.08); one
+     simclutter epoch with quantized="fwd+dx" (35 launches a step).
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -250,7 +266,7 @@ def fmt_ms(v, digits: int = 3) -> str:
 KERNEL_NAMES = ("conv_wp_bf16_1in", "conv_wp_bf16_2in", "conv_wp_f32",
                 "stats_reduce_ranges", "stats_reduce", "dw_bf16", "dw_f32",
                 "dw_reduce", "conv_bd", "head_fwd_reduce", "head_fwd",
-                "head_bwd", "minmax_cluster")
+                "head_bwd", "minmax_cluster", "conv_i8")
 
 
 def ptxas_report(_build, source: str, no_spill: str = "") -> None:
@@ -2874,6 +2890,558 @@ def serving_surfaces(TC, dev, ckpt: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: int8 serving and int8 training
+# ---------------------------------------------------------------------------
+
+PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core operations/s
+Q_CALIB = 16            # calibration frames
+Q_BATCHES = (8, 32)
+Q_TRAIN_STEPS = 5
+Q_TRAIN_RTOL = 0.08     # the JAX package's gate, tests/test_qtrain.py:82
+Q_AGREE_MIN = 0.99      # models/quant.py's contract
+Q_AGREE_GATE = 0.999    # the ROADMAP's gate, measured by runs/quant_validate.py
+# phase 6's run is continued to this many epochs before it is quantized:
+# int8/bf16 mask agreement on the held-out split rises with training,
+# 0.988 at phase 6's 4 epochs, 0.990 at 10, 0.993 at 20, 0.995 at 40
+# (onet_tpu_torch/runs/quant_validate.py --train-epochs 4,10,20,40)
+Q_EPOCHS = 20
+# int8 launches a served batch: one a site, inc.conv2 and up4.conv2 in
+# bf16 with head_bf16
+Q_LAUNCHES = {True: {"conv3x3_i8": 16, "convT2x2_i8": 4},
+              False: {"conv3x3_i8": 18, "convT2x2_i8": 4}}
+# int8 launches a train step: the 18 3x3 convs forward; with "fwd+dx" their
+# input-gradient convs too, but for the first one, whose input (the frames
+# and their complement) needs no gradient
+Q_STEP_FWD, Q_STEP_DX = 18, 17
+# the sites whose times stand in the kernels JSON line
+Q_HEADLINE = {"conv3x3_i8": "up4.conv1", "convT2x2_i8": "up4.up"}
+Q_REPLACES = {"conv3x3_i8": "onet_tpu/models/quant.py:257",
+              "convT2x2_i8": "onet_tpu/models/quant.py:307"}
+PHASE10_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke_phase10")
+
+
+def q_frames(dev, n: int, seed: int) -> torch.Tensor:
+    """n Rayleigh-clutter frames at 512^2 with phase 6's targets, drawn on
+    the card over its PSNR levels in turn: [n, H, W, 1] in [0, 1]."""
+    from onet_tpu_torch.sim.rayleigh import rayleigh_frames
+
+    g = torch.Generator(dev).manual_seed(seed)
+    per = -(-n // len(SIM_LEVELS))
+    xs = [rayleigh_frames(g, float(lvl), n_frames=per, frame_size=H,
+                          crop=H, device=dev)[0] for lvl in SIM_LEVELS]
+    return torch.stack(xs, dim=1).reshape(-1, H, W)[:n, ..., None]
+
+
+def i8_counts(CI) -> dict:
+    return {"conv3x3_i8": CI.conv3x3_i8.launches,
+            "convT2x2_i8": CI.convT2x2_i8.launches}
+
+
+def i8_reset(CI) -> None:
+    CI.conv3x3_i8.launches = CI.convT2x2_i8.launches = 0
+
+
+def i8_operands(CI, run) -> list:
+    """Every int8 kernel launch of ``run()`` as the wrappers gave it to the
+    kernel: (convt, x, w, scale, bias, s_next, mode, y), held (not copied)
+    until the list goes."""
+    ops, real = [], CI._launch
+
+    def capture(x, w, scale, bias, s_next, mode, convt):
+        y = real(x, w, scale, bias, s_next, mode, convt)
+        ops.append((convt, x, w, scale, bias, s_next, mode, y))
+        return y
+
+    CI._launch = capture
+    try:
+        run()
+    finally:
+        CI._launch = real
+    return ops
+
+
+def i8_check(CI, op, tag: str) -> float:
+    """One captured launch on a batch-1 slice of its operands: the kernel's
+    int32 accumulator (run again in that mode, not counted) and the plain
+    version's (float64 on the codes) bit-equal; the captured int8 codes
+    bit-equal to the plain epilogue's; f32 outputs within one f32
+    rounding (their largest |difference| is returned)."""
+    convt, x, w, scale, bias, s_next, mode, y = op
+    x1 = x[:1]
+    acc = CI._launch(x1, w, None, None, None, CI._OUT_I32, convt)
+    ref = (CI.convT2x2_acc_plain if convt else CI.conv3x3_acc_plain)(x1, w)
+    if not torch.equal(acc, ref):
+        bad = int((acc != ref).sum())
+        raise AssertionError(f"{tag}: {bad} int32 sums differ from plain")
+    requant = {CI._OUT_U8: "unsigned", CI._OUT_S8: "signed"}.get(mode)
+    want = CI.epilogue_plain(ref, scale, bias, requant, s_next)
+    got = y[:1]
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{tag}: {got.dtype} against {want.dtype}")
+    if requant is not None:
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{tag}: {bad} int8 codes differ")
+        return 0.0
+    diff = (got - want).abs()
+    if not bool((diff <= torch.finfo(torch.float32).eps
+                 * want.abs()).all()):
+        raise AssertionError(f"{tag}: f32 output off by {diff.max()}")
+    return diff.max().item()
+
+
+def i8_bound(op) -> tuple:
+    """(ms, 'bytes' | 'operations') of one launch: 2 pixels x columns x K
+    operations on the int8 tensor cores (K the real 9 ci or ci, no
+    padding), x and w read once, y (and the [co] vectors) written once."""
+    convt, x, w, scale, bias, s_next, _, y = op
+    n, h, wd, ci = x.shape
+    cols = w.shape[3] * (4 if convt else 1)
+    ops = 2 * n * h * wd * cols * ci * (1 if convt else 9)
+    nbytes = (x.numel() + w.numel() + y.numel() * y.element_size()
+              + sum(4 * t.numel() for t in (scale, bias, s_next)
+                    if t is not None))
+    t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def i8_time(CI, op, plain: bool) -> dict:
+    """A captured launch at its full batch: the kernel alone on operands
+    laid out beforehand (L2 flushed; profiler device time; warm), the
+    wrapper (with its per-call weight layout and input padding), the
+    library call it stands beside (cuDNN's bf16 conv at the same shape;
+    for the transposed conv ``torch._int_mm`` on its GEMM, no scatter),
+    and with ``plain`` the plain version (float64 on the codes, warm)."""
+    import torch.nn.functional as F
+
+    convt, x, w, scale, bias, s_next, mode, _ = op
+    xk, b, _, kpad, vec = CI.operands(x, w, convt)
+    co = w.shape[3]
+
+    def run():
+        return CI.kernel(xk, b, vec, kpad, co, scale, bias, s_next, mode,
+                         convt)
+
+    t = {"ms": cold_ms(run), "device_ms": device_ms(run, kernels=1),
+         "warm_ms": cuda_ms(run),
+         "wrapper_ms": cold_ms(lambda: CI._launch(x, w, scale, bias, s_next,
+                                                  mode, convt))}
+    n, h, wd, ci = x.shape
+    if convt:
+        xm = x.reshape(-1, ci).contiguous()
+        bm = w.flip(0, 1).permute(2, 0, 1, 3).reshape(ci, -1).contiguous()
+        lib = (None if xm.shape[0] <= 16 or ci % 8 or bm.shape[1] % 8
+               else (lambda: torch._int_mm(xm, bm)))
+    else:
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        lib = lambda: F.conv2d(xb, wb, padding=1)   # noqa: E731
+    t["library_ms"] = None if lib is None else cold_ms(lib)
+    t["library_device_ms"] = None if lib is None else device_ms(lib)
+    t["bound_ms"], t["bound_by"] = i8_bound(op)
+    if plain:
+        requant = {CI._OUT_U8: "unsigned", CI._OUT_S8: "signed"}.get(mode)
+        fn = CI.convT2x2_i8_plain if convt else CI.conv3x3_i8_plain
+        t["plain_ms"] = cuda_ms(lambda: fn(x, w, scale, bias,
+                                           requant=requant, s_next=s_next),
+                                reps=3, warmup=1)
+    return t
+
+
+def q_data(dev) -> tuple:
+    """Frames at the checkpoint's training distribution, as the JAX
+    package's gate takes them (runs/quant_validate.py): phase 6's
+    simclutter datasets drawn anew from another seed; the calibration
+    batch is the first Q_CALIB frames of the train split, the held-out
+    frames the test split. Returns (calibration frames, held-out frames)."""
+    from onet_tpu_torch.data.simclutter import simclutter_datasets
+
+    train_ds, test_ds = simclutter_datasets(
+        torch.Generator(dev).manual_seed(SEED + 190),
+        low_snr=min(SIM_LEVELS), high_snr=max(SIM_LEVELS),
+        frames_per_level=SIM_FRAMES, crop=SIM_CROP, device=dev)
+    return train_ds["imgs"][:Q_CALIB].clone(), test_ds["imgs"].clone()
+
+
+def q_agreement(q, folded, x, tag: str) -> dict:
+    """Mask agreement of the int8 graph (both head forms) with the bf16
+    folded graph on ``x``; beside it the bf16 graph's own agreement with
+    the float32 graph (how close the model's masks sit to the edge)."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE, DEFAULT
+    from onet_tpu_torch.models.infer import onet_infer
+    from onet_tpu_torch.models.quant import onet_infer_q
+
+    out = {}
+    with torch.inference_mode():
+        _, l_bf = onet_infer(folded, x, policy=BF16_COMPUTE, pair_pack=False)
+        with DEFAULT.precision():
+            _, l_32 = onet_infer(folded, x, policy=DEFAULT, pair_pack=False)
+        for hb in (True, False):
+            _, l_q = onet_infer_q(q, x, head_bf16=hb)
+            out[f"head_bf16={hb}"] = float((l_q == l_bf).float().mean())
+        out["bf16_vs_f32"] = float((l_bf == l_32).float().mean())
+        out["foreground_share_bf16"] = float(l_bf.float().mean())
+    log(f"[int8] mask agreement with the bf16 folded graph, {tag} "
+        f"{tuple(x.shape)}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in out.items()))
+    return out
+
+
+def q_serving(CI, dev, res, folded, calib, held) -> dict:
+    """Phase 10, steps 2-3: calibration and quantization, then the int8
+    graph at batch 8 and 32 with both head_bf16 values beside the bf16
+    stacked and pair-packed steps; launches counted per batch; mask
+    agreement with the bf16 folded graph on the held-out frames (gated)
+    and on 512^2 frames; every int8 launch of one batch (each head form)
+    against its plain version on the card; each site's kernel timed.
+    Returns q."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import onet_infer
+    from onet_tpu_torch.models.quant import (SITES, calibrate, onet_infer_q,
+                                             quantize_folded)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        q = quantize_folded(folded, calibrate(folded, calib))
+    torch.cuda.synchronize()
+    res["quantize_s"] = time.perf_counter() - t0
+    frames512 = q_frames(dev, max(Q_BATCHES), SEED + 200)
+    with torch.inference_mode():
+        for hb in (True, False):
+            i8_reset(CI)
+            s_q, _ = onet_infer_q(q, frames512[:8], head_bf16=hb)
+            torch.cuda.synchronize()
+            got = i8_counts(CI)
+            if got != Q_LAUNCHES[hb]:
+                raise AssertionError(f"int8 batch (head_bf16={hb}) launched "
+                                     f"{got}, expected {Q_LAUNCHES[hb]}")
+            if s_q.shape != (8, H, W, 2) or not bool(
+                    torch.isfinite(s_q).all()):
+                raise AssertionError(f"int8 S {tuple(s_q.shape)} or "
+                                     "non-finite")
+    res["launches"] = {str(hb): Q_LAUNCHES[hb] for hb in (True, False)}
+    log(f"[int8] calibration on {Q_CALIB} frames of the train split and "
+        f"quantization {res['quantize_s']:.2f} s; launches a batch "
+        f"{res['launches']}")
+    res["agreement"] = q_agreement(q, folded, held, "held-out test split")
+    res["agreement_512"] = q_agreement(q, folded, frames512[:8],
+                                       "512^2 Rayleigh frames")
+    agree = [res["agreement"][f"head_bf16={hb}"] for hb in (True, False)]
+    log(f"[int8] held-out agreement {min(agree):.6f} against the contract "
+        f"{Q_AGREE_MIN} (gated) and the ROADMAP's gate {Q_AGREE_GATE} "
+        f"({'met' if min(agree) >= Q_AGREE_GATE else 'not met'})")
+    if min(agree) < Q_AGREE_MIN:
+        raise AssertionError(f"int8 mask agreement {res['agreement']} < "
+                             f"{Q_AGREE_MIN}")
+    # every launch of one batch, each head form, against its plain version
+    err, sites = 0.0, {}
+    for hb in (True, False):
+        with torch.inference_mode():
+            ops = i8_operands(CI, lambda: onet_infer_q(q, frames512[:8],
+                                                       head_bf16=hb))
+        names = [s for s in SITES if not (hb and s in ("inc.conv2",
+                                                       "up4.conv2"))]
+        if len(ops) != len(names) or any(
+                op[0] != n.endswith(".up") for op, n in zip(ops, names)):
+            raise AssertionError(f"int8 launches {len(ops)} out of order")
+        for name, op in zip(names, ops):
+            tag = f"int8 {name} (head_bf16={hb}) x {tuple(op[1].shape)}"
+            with torch.inference_mode():
+                err = max(err, i8_check(CI, op, tag))
+        log(f"[int8] head_bf16={hb}: all {len(ops)} launches of a batch-8 "
+            f"step held on their batch-1 slices: int32 sums and int8 codes "
+            f"bit-equal, f32 outputs within {err:.3e}")
+        if not hb:
+            sites = dict(zip(names, ops))
+        del ops
+    res["max_abs_err"] = err
+
+    # each site's kernel timed at batch 8 (the plain version at the
+    # headline sites only)
+    res["sites"] = {}
+    with torch.inference_mode():
+        for name, op in sites.items():
+            t = i8_time(CI, op, plain=name in Q_HEADLINE.values())
+            t["shape"] = [list(op[1].shape), list(op[2].shape)]
+            res["sites"][name] = t
+            log(f"[int8] site {name} x {tuple(op[1].shape)} w "
+                f"{tuple(op[2].shape)}: kernel {t['ms']:.4f} ms (device "
+                f"{fmt_ms(t['device_ms'], 4)}, warm {t['warm_ms']:.4f}), "
+                f"wrapper {t['wrapper_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                f"({t['bound_by']}), library "
+                f"{fmt_ms(t['library_ms'], 4)} (device "
+                f"{fmt_ms(t['library_device_ms'], 4)})"
+                + (f", plain {t['plain_ms']:.3f}" if "plain_ms" in t else ""))
+    del sites
+    torch.cuda.empty_cache()
+
+    # the int8 steps beside the bf16 stacked and pair-packed steps
+    with torch.inference_mode():
+        for b in Q_BATCHES:
+            xb = frames512[:b]
+            for hb in (True, False):
+                key = f"b{b}_int8{'_bf16head' if hb else ''}_step_ms"
+                res[key] = cuda_ms(lambda: onet_infer_q(q, xb, head_bf16=hb),
+                                   reps=5, warmup=2)
+            for wp in (False, True):
+                key = f"b{b}_bf16_{'wp' if wp else 'stacked'}_step_ms"
+                res[key] = cuda_ms(lambda: onet_infer(
+                    folded, xb, policy=BF16_COMPUTE, pair_pack=wp),
+                    reps=5, warmup=2)
+            torch.cuda.empty_cache()
+        res["b8_int8_profile"] = breakdown(
+            lambda: onet_infer_q(q, frames512[:8]), "int8 batch 8 step "
+            "(bf16 head)", top=12)
+    log(f"[int8] 512x512 steps (ms): " + ", ".join(
+        f"{k[:-8]} {v:.3f}" for k, v in res.items() if k.endswith("_step_ms")))
+    del frames512
+    return q
+
+
+def q_http(CI, dev, res, q) -> None:
+    """Phase 10, step 4: the int8 step behind the daemon at batch 8."""
+    from onet_tpu_torch.models.quant import onet_infer_q
+    from onet_tpu_torch.serve.http import ServingSession
+
+    sess = ServingSession(lambda q_, xb: onet_infer_q(q_, xb), q, batch=8,
+                          in_channels=1, mode="int8+bf16head",
+                          model_name="phase6-checkpoint", input_hw=(H, W))
+    sess.warmup()
+    reqs = [q_frames(dev, 8, SEED + 210 + i).cpu().numpy() for i in range(3)]
+    httpd, th, url = serve_in_thread(sess)
+    try:
+        i8_reset(CI)
+        masks = [post(url + "/segment", r) for r in reqs]
+        launches = i8_counts(CI)
+        stats = get_json(url + "/stats")
+    finally:
+        stop_server(httpd, th)
+    want = {k: 3 * v for k, v in Q_LAUNCHES[True].items()}
+    if launches != want:
+        raise AssertionError(f"int8 HTTP launches {launches}, expected {want}")
+    with torch.inference_mode():
+        for r, m in zip(reqs, masks):
+            _, lab = onet_infer_q(q, torch.from_numpy(r).to(dev))
+            if not np.array_equal(m, lab.cpu().numpy().astype(np.uint8)):
+                raise AssertionError("int8 HTTP masks differ from a direct "
+                                     "call")
+    res["http_request_ms_p50"] = stats["total_ms"]["p50"]
+    log(f"[int8] HTTP: 3 requests of 8 frames, launches {launches}, masks "
+        f"equal to direct calls; request p50 "
+        f"{res['http_request_ms_p50']:.2f} ms; stats {stats}")
+
+
+def q_artifact(CI, dev, res, params, state, q, calib) -> None:
+    """Phase 10, step 5: the int8 artifact exported on the card with the
+    calibration frames, loaded afresh, serving batch 8: its calls launch
+    the int8 kernels, its S equals the live int8 step's."""
+    from onet_tpu_torch.models.quant import onet_infer_q
+    from onet_tpu_torch.serve.artifact import (export_serving_artifact,
+                                               load_serving_artifact)
+
+    path = os.path.join(PHASE10_DIR, "onet_int8_512.onetp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = export_serving_artifact(params, state, path, input_hw=(H, W),
+                                   int8_calib=calib)
+    res["artifact_export_s"] = time.perf_counter() - t0
+    res["artifact_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    call, meta_read = load_serving_artifact(path)
+    res["artifact_load_s"] = time.perf_counter() - t0
+    if meta_read != meta or meta["arithmetic"] != "int8+bf16head":
+        raise AssertionError(f"int8 artifact header {meta_read}")
+    x8 = q_frames(dev, 8, SEED + 220)
+    i8_reset(CI)
+    s_art, l_art = call(x8)
+    torch.cuda.synchronize()
+    launches = i8_counts(CI)
+    with torch.inference_mode():
+        s_live, l_live = onet_infer_q(q, x8)
+    same = bool(torch.equal(s_art, s_live)) and bool(torch.equal(
+        l_art, l_live.to(torch.int32)))
+    res["artifact_launches"] = launches
+    res["artifact_equals_live"] = same
+    res["artifact_step_ms"] = cuda_ms(lambda: call(x8), reps=5, warmup=2)
+    log(f"[int8] artifact: exported in {res['artifact_export_s']:.2f} s, "
+        f"{res['artifact_bytes']} bytes, loaded in "
+        f"{res['artifact_load_s']:.2f} s; a batch of 8 launched {launches}; "
+        f"S and masks equal to the live int8 step: {same}; step "
+        f"{res['artifact_step_ms']:.3f} ms")
+    if launches != Q_LAUNCHES[True]:
+        raise AssertionError(f"the int8 artifact launched {launches}")
+    if not same:
+        raise AssertionError("the int8 artifact's S differs from the live "
+                             "int8 step's")
+    del call
+
+
+def q_train(CI, dev, res) -> None:
+    """Phase 10, step 6: make_train_step(quantized="fwd" and "fwd+dx") for
+    Q_TRAIN_STEPS steps at 512^2, batch 8, bf16, Adam at lr 1e-5, from
+    phase 4's init and frames, beside the exact stacked step; launches per
+    step asserted; step times."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    params0, state0 = O.onet_init(gen, 1, base=64)
+    xs = [torch.from_numpy(frames(8, SEED + 30 + i)).to(dev)
+          for i in range(Q_TRAIN_STEPS)]
+    losses, steps = {}, {}
+    for level in (None, "fwd", "fwd+dx"):
+        key = level or "exact"
+        p, st, o = _clone(params0), _clone(state0), adam_init(params0)
+        with pair_pack(O, False):
+            step = make_train_step(policy=BF16_COMPUTE, quantized=level)
+            i8_reset(CI)
+            out = []
+            for x in xs:
+                p, st, o, loss = step(p, st, o, x, LR)
+                out.append(loss.item())
+            launches = i8_counts(CI)
+            per = (0 if level is None else Q_STEP_FWD
+                   + (Q_STEP_DX if level == "fwd+dx" else 0))
+            want = {"conv3x3_i8": per * Q_TRAIN_STEPS, "convT2x2_i8": 0}
+            if launches != want:
+                raise AssertionError(f"train {key}: launches {launches}, "
+                                     f"expected {want}")
+            steps[key] = cuda_ms(lambda: step(p, st, o, xs[0], LR), reps=5,
+                                 warmup=1)
+        losses[key] = out
+        log(f"[int8] train {key}: losses {out}; int8 launches in "
+            f"{Q_TRAIN_STEPS} steps {launches}; step {steps[key]:.2f} ms")
+        del p, st, o
+        torch.cuda.empty_cache()
+    res["train_losses"] = losses
+    res["train_step_ms"] = steps
+    res["train_launches_per_step"] = {"fwd": Q_STEP_FWD,
+                                      "fwd+dx": Q_STEP_FWD + Q_STEP_DX}
+    last = losses["exact"][-1]
+    for level in ("fwd", "fwd+dx"):
+        if not all(np.isfinite(losses[level])):
+            raise AssertionError(f"train {level}: non-finite loss")
+        rel = abs(losses[level][-1] - last) / abs(last)
+        res[f"train_{level}_loss_rel"] = rel
+        if rel > Q_TRAIN_RTOL:
+            raise AssertionError(f"train {level}: step-{Q_TRAIN_STEPS} loss "
+                                 f"{losses[level][-1]} vs exact {last}")
+
+
+def q_simclutter(CI, res) -> None:
+    """Phase 10, step 7: one epoch of the simclutter driver at its defaults
+    (224^2, batch 10, base 64), bf16, quantized="fwd+dx"."""
+    import tempfile
+
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.train import simclutter as SC
+
+    out_root = tempfile.mkdtemp(prefix="onet_simclutter_q_")
+    try:
+        i8_reset(CI)
+        t0 = time.perf_counter()
+        _, _, hist = SC.train(SC.SimclutterConfig(
+            quantized="fwd+dx", epoch_nums=1, save_epochs=(),
+            out_root=out_root, input_sz=SIM_CROP,
+            frames_per_level=SIM_FRAMES, base_channels=SIM_BASE),
+            policy=BF16_COMPUTE, log=False)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    launches = i8_counts(CI)
+    n_train = int(len(SIM_LEVELS) * SIM_FRAMES * 0.9)
+    steps = num_batches(n_train, SIM_BATCH)
+    want = {"conv3x3_i8": steps * (Q_STEP_FWD + Q_STEP_DX), "convT2x2_i8": 0}
+    res["sim_epoch_s"] = wall
+    res["sim_loss"] = hist["loss"][0]
+    res["sim_eval"] = hist["eval"]
+    log(f"[int8] simclutter driver, quantized=fwd+dx, 1 epoch at "
+        f"{SIM_CROP}^2 batch {SIM_BATCH}: {steps} steps, {wall:.2f} s with "
+        f"data generation, loss {hist['loss'][0]:.6f}, eval {hist['eval']}; "
+        f"int8 launches {launches}")
+    if launches != want:
+        raise AssertionError(f"simclutter int8 launches {launches}, "
+                             f"expected {want}")
+    if not np.isfinite(hist["loss"][0]):
+        raise AssertionError("simclutter int8 loss is not finite")
+
+
+def q_continue(ckpt: str) -> str:
+    """Phase 10, step 1: phase 6's run continued from its last checkpoint
+    ``ckpt`` to Q_EPOCHS epochs (the driver's resume, phase 6's config:
+    the same data, schedule and Adam state; bf16, pair-packed). Returns
+    the last checkpoint, in PHASE10_DIR."""
+    import tempfile
+
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.train import simclutter as SC
+
+    out_root = tempfile.mkdtemp(prefix="onet_simclutter_resume_")
+    try:
+        shutil.copy(ckpt, out_root)
+        t0 = time.perf_counter()
+        with pair_pack(O, True):
+            _, _, hist = SC.train(SC.SimclutterConfig(
+                epoch_nums=Q_EPOCHS, resume=True, save_epochs=(),
+                eval_every=10 ** 6, out_root=out_root, input_sz=SIM_CROP,
+                frames_per_level=SIM_FRAMES, base_channels=SIM_BASE),
+                policy=BF16_COMPUTE, log=False)
+        log(f"[int8] phase 6's run resumed to {Q_EPOCHS} epochs in "
+            f"{time.perf_counter() - t0:.1f} s: losses {hist['loss']}, "
+            f"eval {hist['eval']}")
+        return shutil.copy(newest_checkpoint(out_root), PHASE10_DIR)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+
+
+def int8_workload(dev, ckpt: str) -> dict:
+    """Phase 10: int8 serving and training at full width (base 64): phase
+    6's run continued to Q_EPOCHS epochs (phase 6's own checkpoint sits
+    too close to the softmax's edge for the 0.99 contract, and its
+    agreement is reported beside), calibration and quantization, the int8
+    graph against its plain versions and the bf16 graph, HTTP, the int8
+    artifact, int8 training and the simclutter driver with int8
+    training."""
+    from onet_tpu_torch.core.bridge import load_onet_npz
+    from onet_tpu_torch.models.infer import fold_onet
+    from onet_tpu_torch.models.quant import calibrate, quantize_folded
+    from onet_tpu_torch.models.unet import param_count
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    res = {}
+    calib, held = q_data(dev)
+    params, state, epoch = load_onet_npz(ckpt)
+    with torch.inference_mode():
+        folded = fold_onet(params, state)
+        q = quantize_folded(folded, calibrate(folded, calib))
+    res["agreement_phase6"] = q_agreement(
+        q, folded, held, f"phase 6's checkpoint (epoch index {epoch}), "
+        "held-out test split, not gated")
+    del params, state, folded, q
+    path = q_continue(ckpt)
+    params, state, epoch = load_onet_npz(path)
+    res["checkpoint"] = f"{os.path.basename(path)} (epoch index {epoch})"
+    res["params"] = param_count(params)
+    log(f"[int8] model {res['checkpoint']}, {res['params']} params")
+    with torch.inference_mode():
+        folded = fold_onet(params, state)
+    q = q_serving(CI, dev, res, folded, calib, held)
+    q_http(CI, dev, res, q)
+    q_artifact(CI, dev, res, params, state, q, calib)
+    del q, folded, params, state, calib, held
+    torch.cuda.empty_cache()
+    q_train(CI, dev, res)
+    q_simclutter(CI, res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -2898,6 +3466,7 @@ def main() -> int:
     ptxas_report(_build, "conv_wp_dw", no_spill="dw_bf16")
     ptxas_report(_build, "conv_bd", no_spill="conv_bd")
     ptxas_report(_build, "head", no_spill="minmax_cluster")
+    ptxas_report(_build, "conv_i8")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2939,7 +3508,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     os.makedirs(PHASE9_DIR, exist_ok=True)
+    os.makedirs(PHASE10_DIR, exist_ok=True)
     ckpt = shutil.copy(newest_checkpoint(sim["out_root"]), PHASE9_DIR)
+    ckpt10 = shutil.copy(ckpt, PHASE10_DIR)
     with pair_pack(O, True):
         try:
             det = detection_workload(TC, dev, sim["out_root"])
@@ -2985,6 +3556,21 @@ def main() -> int:
         f"{surf['artifact_step_ms']:.3f} ms vs live stacked "
         f"{surf['live_stacked_step_ms']:.3f} ms; on {card}")
     log(f"[phase9] phase took {surf['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        q8 = int8_workload(dev, ckpt10)
+    finally:
+        shutil.rmtree(PHASE10_DIR, ignore_errors=True)
+    q8["phase_s"] = time.perf_counter() - t0
+    log("[int8] " + json.dumps(q8))
+    log(f"[int8] 512x512 batch 8: int8 (bf16 head) "
+        f"{q8['b8_int8_bf16head_step_ms']:.3f} ms, int8 "
+        f"{q8['b8_int8_step_ms']:.3f} ms, bf16 stacked "
+        f"{q8['b8_bf16_stacked_step_ms']:.3f} ms, bf16 pair-packed "
+        f"{q8['b8_bf16_wp_step_ms']:.3f} ms; mask agreement "
+        f"{q8['agreement']}; train step ms {q8['train_step_ms']}; on {card}")
+    log(f"[phase10] phase took {q8['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -3057,6 +3643,26 @@ def main() -> int:
                                      surf["rgb_launches"]))
         row["scene_max_abs_err"] = surf["window_max_abs_err"]
     rows += phase5_rows
+    # phase 10's int8 kernels: times at their headline sites (batch 8,
+    # 512^2), launches of one served batch with the bf16 head; the train
+    # step's and every site's beside them
+    for name, site in Q_HEADLINE.items():
+        t = q8["sites"][site]
+        rows.append(dict(
+            name=name, route="cuda", source="onet_tpu_torch/csrc/conv_i8.cu",
+            replaces=Q_REPLACES[name], site=site,
+            launches=q8["launches"]["True"][name],
+            max_abs_err=q8["max_abs_err"],
+            **{k: t[k] for k in ("ms", "device_ms", "warm_ms", "wrapper_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library_device_ms")},
+            train_launches_per_step=(q8["train_launches_per_step"]
+                                     if name == "conv3x3_i8" else 0),
+            sites={k: {"ms": v["ms"], "device_ms": v["device_ms"],
+                       "bound_ms": v["bound_ms"],
+                       "library_ms": v["library_ms"]}
+                   for k, v in q8["sites"].items()
+                   if k.endswith(".up") == (name == "convT2x2_i8")}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

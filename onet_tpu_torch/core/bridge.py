@@ -15,6 +15,10 @@
 * ``adam_state_from_jax``: the JAX ``adam_init``/``adam_update`` state
   (optax's count, mu, nu, as numpy) to the port's Adam state, so a run can
   start both frameworks from the same params, BN state and optimizer state.
+* ``quant_from_jax_numpy``: the JAX int8 serving parameters ``q``
+  (``onet_tpu/models/quant.py::quantize_folded``, as numpy) to the port's
+  (``models/quant.py``): the same keys, int8 codes as ``torch.int8``, the
+  scales and biases float32, the float ``in_scale`` kept.
 
 Every loader puts the tensors on ``device``: the card by default, raising
 without one. The exporters take trees on any device and return CPU
@@ -56,6 +60,27 @@ def adam_state_from_jax(count, mu, nu, device=None):
     return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                                   device=dev),
             "mu": tree_map(conv, mu), "nu": tree_map(conv, nu)}
+
+
+def quant_from_jax_numpy(q, device=None):
+    """JAX int8 serving parameters (``quantize_folded``'s dict, numpy or
+    array-like leaves) -> the port's ``q`` on ``device``: int8 leaves stay
+    int8, the rest become float32; ``in_scale`` stays a Python float."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return torch.tensor(a, device=dev)
+        return torch.tensor(a.astype(np.float32), device=dev)
+
+    out = {}
+    for key, val in q.items():
+        if key == "in_scale":
+            out[key] = float(np.asarray(val))
+        else:
+            out[key] = {k: leaf(v) for k, v in val.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------

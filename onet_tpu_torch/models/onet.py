@@ -18,7 +18,7 @@ import torch
 from onet_tpu_torch.core.device import resolve_device
 from onet_tpu_torch.core.policy import Policy, DEFAULT
 from onet_tpu_torch.models.unet import (
-    unet_init, unet_apply, unet_apply_stacked, tree_map)
+    DEFAULT_OPS, unet_init, unet_apply, unet_apply_stacked, tree_map)
 from onet_tpu_torch.ops.math import log1pexp
 from onet_tpu_torch.ops.normalize import complement
 
@@ -93,18 +93,22 @@ def stacked_head(loc, glob):
 
 def onet_forward(params, state, x, *, train: bool, bias: float = 0.0,
                  policy: Policy = DEFAULT, channel_stack: bool = None,
-                 pair_pack: bool = None, dp_local: bool = False):
+                 pair_pack: bool = None, ops=DEFAULT_OPS,
+                 dp_local: bool = False):
     """Forward pass on an NHWC batch in [0, 1]; returns (OnetOutput,
     new_state). Branches, as in the JAX package: the pair-packed kernels
-    (weight-shared, ``pair_pack`` and ``wp_supported``), else
-    channel-stacked (weight-shared and ``channel_stack``; ``dp_local``
-    interleaves its middle levels by sample), else batch-stacked
-    (weight-shared), else the twin nets one after the other."""
+    (weight-shared, ``pair_pack``, ``wp_supported`` and the default
+    ``ops``: other ops, such as int8 training's, run the stacked graph),
+    else channel-stacked (weight-shared and ``channel_stack``;
+    ``dp_local`` interleaves its middle levels by sample), else
+    batch-stacked (weight-shared), else the twin nets one after the
+    other. ``ops`` (``models/unet.py::DEFAULT_OPS``) are the U-Net's layer
+    primitives."""
     xd = complement(x, bias)
     stack = CHANNEL_STACK if channel_stack is None else channel_stack
     wp = PAIR_PACK if pair_pack is None else pair_pack
     b = x.shape[0]
-    if is_weight_shared(params) and wp:
+    if is_weight_shared(params) and wp and ops is DEFAULT_OPS:
         from onet_tpu_torch.models.wp import (
             unet_apply_wp, head_wp, wp_supported)
         base = params["top"]["inc"]["conv1"]["w"].shape[-1]
@@ -123,7 +127,7 @@ def onet_forward(params, state, x, *, train: bool, bias: float = 0.0,
         xx = torch.cat([x, xd], dim=-1)
         (loc, glob), new_top = unet_apply_stacked(
             params["top"], state["top"], xx, train=train, policy=policy,
-            dp_local=dp_local)
+            ops=ops, dp_local=dp_local)
         c = loc.shape[-1] // 2
         v, lsum = stacked_head(loc, glob)
         return OnetOutput(Lt=loc[..., :c], Ld=loc[..., c:], Vt=v[..., 0],
@@ -133,14 +137,16 @@ def onet_forward(params, state, x, *, train: bool, bias: float = 0.0,
         xx = torch.cat([x, xd], dim=0)
         (loc, glob), new_top = unet_apply(params["top"], state["top"], xx,
                                           train=train, groups=2,
-                                          policy=policy)
+                                          policy=policy, ops=ops)
         lt, ld, ht, hd = loc[:b], loc[b:], glob[:b], glob[b:]
         new_state = {"top": new_top}
     else:
         (lt, ht), new_top = unet_apply(params["top"], state["top"], x,
-                                       train=train, groups=1, policy=policy)
+                                       train=train, groups=1, policy=policy,
+                                       ops=ops)
         (ld, hd), new_dwn = unet_apply(params["down"], state["down"], xd,
-                                       train=train, groups=1, policy=policy)
+                                       train=train, groups=1, policy=policy,
+                                       ops=ops)
         new_state = {"top": new_top, "down": new_dwn}
     vt = channel_dot(lt.float(), ht.float())
     vd = channel_dot(ld.float(), hd.float())

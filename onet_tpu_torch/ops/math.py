@@ -13,6 +13,8 @@ branch, so values and gradients stay finite at both ends. The clamps are
 ``torch.minimum``/``torch.maximum``, which split the gradient of a tie in
 half as ``jnp.minimum``/``jnp.clip`` do, so the gradient at exactly -37 and
 18 is the JAX package's too.
+
+``div`` divides by a Python float as a true division on every device.
 """
 
 from __future__ import annotations
@@ -30,3 +32,11 @@ def log1pexp(x: torch.Tensor) -> torch.Tensor:
         torch.exp(x_lo),
         torch.where(x <= mid, torch.log1p(torch.exp(x_mid)),
                     torch.where(x < hi, x_hi + torch.exp(-x_hi), x)))
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as a true division on every device: PyTorch's CUDA
+    kernels turn a Python-scalar divisor into a multiply by its
+    reciprocal, which rounds apart from the CPU's division; a tensor
+    divisor divides."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)

@@ -33,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from onet_tpu_torch.ops.math import div
+
 
 def _window(x: torch.Tensor, sz: int, op) -> torch.Tensor:
     """op-reduce of sz x sz windows of a padded [N, H + sz - 1, W + sz - 1]
@@ -44,14 +46,6 @@ def _window(x: torch.Tensor, sz: int, op) -> torch.Tensor:
             v = x[:, dy:dy + h, dx:dx + w]
             acc = v if acc is None else op(acc, v)
     return acc
-
-
-def div(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x / c rounded as a true division on every device: PyTorch's CUDA
-    kernels turn a Python-scalar divisor into a multiply by its
-    reciprocal, which rounds apart from the CPU's division; a tensor
-    divisor divides."""
-    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _pads(sz: int):

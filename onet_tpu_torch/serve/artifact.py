@@ -11,7 +11,12 @@ static.
 
 The exported graph is the channel-stacked folded forward on cuDNN, as the
 JAX artifact exports its default graph: the pair-packed path calls its
-kernels through ctypes, which ``torch.export`` cannot trace. Tensors made
+kernels through ctypes, which ``torch.export`` cannot trace. With
+``int8_calib`` it is the int8 graph (``models/quant.py``), whose int8
+convs are the ``torch.library`` custom ops of ``ops/conv_i8.py``: the
+program records them as ops and launches the hand-written kernels when it
+runs on the card; ``load_serving_artifact`` imports that module (which
+registers the ops) before it deserializes a program. Tensors made
 inside the traced code take the device they were traced on, so the program
 is exported on the device that will serve it (the card by default), the
 header records that device, and a load on another device moves the
@@ -70,37 +75,62 @@ def _call_fn(folded, policy, bias):
     return fn
 
 
+def _call_fn_q(q, bias, head_bf16):
+    """The exported int8 computation: x [B, H, W, C] f32 -> (S f32, labels
+    int32), on the int8 graph."""
+    from onet_tpu_torch.models.quant import onet_infer_q
+
+    def fn(x):
+        s, labels = onet_infer_q(q, x, bias=bias, head_bf16=head_bf16)
+        return s.float(), labels.to(torch.int32)
+
+    return fn
+
+
 def export_serving_artifact(params, bn_state, out_path, *, input_hw,
                             in_channels=1, batch=None, policy=None,
-                            bias=0.0, int8_calib=None, extra_meta=None,
-                            device=None) -> dict:
+                            bias=0.0, int8_calib=None, head_bf16=True,
+                            extra_meta=None, device=None) -> dict:
     """Export the folded serving graph of ``(params, bn_state)`` on
     ``device`` (default: the card; raises without one).
 
     batch=None exports a symbolic batch dimension (any batch size at call
-    time); an int pins it. ``int8_calib`` raises: the int8 graph is not in
-    the port yet. Returns the header written."""
+    time); an int pins it. ``int8_calib`` (a [B, H, W, C] calibration batch
+    in [0, 1]) bakes the int8 graph instead (``models/quant.py``,
+    calibrated on that batch with ``policy``; weight-shared models only;
+    ``head_bf16`` as in ``onet_infer_q``). Returns the header written."""
     from onet_tpu_torch.core.policy import BF16_COMPUTE
     from onet_tpu_torch.models.infer import fold_onet
+    from onet_tpu_torch.models.onet import is_weight_shared
     from onet_tpu_torch.models.unet import param_count, tree_map
 
-    if int8_calib is not None:
-        raise NotImplementedError(
-            "int8 artifacts need the int8 serving graph (models/quant.py), "
-            "which the port does not have yet (ROADMAP.md, Queue A item 2)")
     dev = resolve_device(device)
     policy = policy or BF16_COMPUTE
     with torch.no_grad():
         folded = fold_onet(tree_map(lambda t: t.to(dev), params),
                            tree_map(lambda t: t.to(dev), bn_state))
-    meta = {"bias": float(bias),
-            "arithmetic": str(policy.compute_dtype).removeprefix("torch."),
+    if int8_calib is not None:
+        from onet_tpu_torch.models.quant import calibrate, quantize_folded
+        if not is_weight_shared(params):
+            raise ValueError("int8 artifacts require the weight-shared "
+                             "model (the quantized graph is the stacked "
+                             "twin pass; models/quant.py)")
+        x = torch.as_tensor(int8_calib).to(dev, torch.float32)
+        with torch.no_grad():
+            q = quantize_folded(folded, calibrate(folded, x, bias=bias,
+                                                  policy=policy))
+        fn = _call_fn_q(q, bias, head_bf16)
+        arithmetic = "int8" + ("+bf16head" if head_bf16 else "")
+    else:
+        fn = _call_fn(folded, policy, bias)
+        arithmetic = str(policy.compute_dtype).removeprefix("torch.")
+    meta = {"bias": float(bias), "arithmetic": arithmetic,
             "params_m": round(param_count(params) / 1e6, 4)}
     if extra_meta:
         meta.update(extra_meta)
-    return export_fn_artifact(_call_fn(folded, policy, bias), out_path,
-                              input_hw=input_hw, in_channels=in_channels,
-                              batch=batch, extra_meta=meta, device=dev)
+    return export_fn_artifact(fn, out_path, input_hw=input_hw,
+                              in_channels=in_channels, batch=batch,
+                              extra_meta=meta, device=dev)
 
 
 def export_fn_artifact(fn, out_path, *, input_hw, in_channels, batch=None,
@@ -207,6 +237,8 @@ def load_serving_artifact(path, device=None):
     ``device``, the contract of the checkpoint serving step, so the tiling
     and HTTP layers take it unchanged. Raises where the program cannot be
     put on ``device``."""
+    import onet_tpu_torch.ops.conv_i8  # noqa: F401  (registers the int8 ops)
+
     dev = resolve_device(device)
     meta, blob = _read_container(path, want_blob=True)
     program = torch.export.load(io.BytesIO(blob))

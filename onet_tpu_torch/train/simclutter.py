@@ -15,9 +15,10 @@ The reference's Train_Onet_on_simclutter_20250407.py, rebuilt:
 Beyond the reference, as in the JAX package: resume from the newest
 checkpoint, rotated autosaves, and a SIGTERM drain that checkpoints and
 returns. ``device`` (default: the card; raises without one) is the one
-argument the JAX package has no counterpart to. Not ported here: ``mesh``,
-``pipeline_microbatches``, ``spatial``, ``quantized`` and backbones other
-than the vanilla conv U-Net; they raise ``NotImplementedError``.
+argument the JAX package has no counterpart to. ``quantized`` trains with
+int8 conv arithmetic (``models/qtrain.py``). Not ported here: ``mesh``,
+``pipeline_microbatches``, ``spatial`` and backbones other than the vanilla
+conv U-Net; they raise ``NotImplementedError``.
 
 Random streams come from ``core/prng.py`` (seed -> data, model, loop);
 each epoch's shuffle and augmentation draw from a generator derived from
@@ -84,7 +85,8 @@ class SimclutterConfig:
     # on SIGTERM finish the current step, checkpoint into the autosave
     # namespace and return (main thread only)
     preempt_save: bool = True
-    # int8 training: not ported (raises unless None)
+    # int8 training arithmetic (models/qtrain.py): None = exact, "fwd" =
+    # int8 forward convs, "fwd+dx" = also the input-gradient convs
     quantized: str = None
     # backbone family (models/arch.py): the port has "vanilla"
     arch: str = "vanilla"
@@ -120,7 +122,7 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
     and, after a SIGTERM drain, history["preempted"] (the epoch it cut).
     ``datasets=(train, test)`` skips generation."""
     _not_ported(mesh=mesh, pipeline_microbatches=pipeline_microbatches,
-                spatial=spatial, quantized=config.quantized)
+                spatial=spatial)
     arch = get_arch(config.arch, swin_window=config.swin_window,
                     swin_embed=config.swin_embed,
                     convnext_embed=config.convnext_embed,
@@ -145,6 +147,7 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                                  base=config.base_channels, device=dev)
     opt_state = adam_init(params)
     train_step = make_train_step(policy=policy, bias=config.bias,
+                                 quantized=config.quantized,
                                  loss=config.loss)
     eval_step = make_eval_step(policy=policy, align="flip", bias=config.bias,
                                loss=config.loss)

@@ -7,9 +7,10 @@ the optimizer state are updated in place (the JAX step donates their
 buffers); the new BatchNorm state comes back as a new tree. Each step runs
 under its policy's precision switches, backward included.
 
-Not ported here: ``mesh`` and ``spatial`` (data and spatial parallelism),
-``quantized`` (int8 training) and ``forward`` (other backbones). They raise
-``NotImplementedError``.
+``quantized`` ("fwd" or "fwd+dx") runs the 3x3 convs in int8
+(``models/qtrain.py``) on the stacked graph. Not ported here: ``mesh`` and
+``spatial`` (data and spatial parallelism) and ``forward`` (other
+backbones). They raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from onet_tpu_torch.metrics.segmentation import (
     align_labels_by_accuracy, align_labels_hungarian,
     evaluate_binary_segmentation)
 from onet_tpu_torch.models.onet import LOSSES, onet_forward, predict_label
-from onet_tpu_torch.models.unet import tree_leaves, tree_map, tree_unflatten
+from onet_tpu_torch.models.unet import (DEFAULT_OPS, tree_leaves, tree_map,
+                                        tree_unflatten)
 from onet_tpu_torch.train.optim import adam_update
 
 
@@ -30,7 +32,7 @@ def _not_ported(**opts):
     if given:
         raise NotImplementedError(
             f"{', '.join(given)}: not in the port yet (data/spatial "
-            f"parallelism, int8 training and other backbones come later)")
+            f"parallelism and other backbones come later)")
 
 
 def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
@@ -44,16 +46,25 @@ def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
     the batch before one Adam update; the loss and gradient are their
     means, and the BatchNorm state threads through the slices in order.
     ``loss``: "jsd" (the reference objective) or "rsn" (random-sampling
-    negatives)."""
-    _not_ported(mesh=mesh, spatial=spatial, quantized=quantized,
-                forward=forward)
+    negatives). ``quantized`` (None: exact): "fwd" runs the 3x3 convs
+    with int8 forward arithmetic, "fwd+dx" also the input-gradient convs
+    (``models/qtrain.py``), on the vanilla backbone only."""
+    if forward is not None and forward is not onet_forward and quantized:
+        raise ValueError("quantized training applies to the vanilla conv "
+                         "backbone only")
+    _not_ported(mesh=mesh, spatial=spatial, forward=forward)
+    if quantized:
+        from onet_tpu_torch.models.qtrain import make_qtrain_ops
+        ops = make_qtrain_ops(level=quantized)
+    else:
+        ops = DEFAULT_OPS
     loss_of = LOSSES[loss]
 
     def grads_of(params, bn_state, x):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
             out, new_bn = onet_forward(p, bn_state, x, train=True, bias=bias,
-                                       policy=policy)
+                                       policy=policy, ops=ops)
             value = loss_of(out)
         grads = torch.autograd.grad(value, tree_leaves(p))
         return value.detach(), new_bn, tree_unflatten(params, grads)

@@ -192,8 +192,14 @@ def test_jax_artifact_is_named(tmp_path):
 
 
 def test_int8_calib_raises(model, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    """int8 artifacts are exported (tests/test_torch_quant.py), for the
+    weight-shared model only, as in the JAX package: a twin model raises
+    before anything is written."""
+    tp, ts = model[1]
+    with pytest.raises(ValueError, match="weight-shared"):
         TA.export_serving_artifact(
-            *model[1], str(tmp_path / "q.onetp"), input_hw=HW,
-            int8_calib=np.zeros((2, *HW, 1), np.float32), device="cpu")
+            {"top": tp["top"], "down": tp["top"]},
+            {"top": ts["top"], "down": ts["top"]}, str(tmp_path / "q.onetp"),
+            input_hw=HW, int8_calib=np.zeros((2, *HW, 1), np.float32),
+            device="cpu")
     assert not (tmp_path / "q.onetp").exists()

@@ -616,3 +616,105 @@ def test_artifact_on_the_card_matches_live_stacked(dev, tmp_path, export_on):
                                     pair_pack=False)
     torch.testing.assert_close(s, s_live, atol=1e-5, rtol=0)
     assert (labels == l_live).float().mean().item() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# int8 convolutions (csrc/conv_i8.cu)
+# ---------------------------------------------------------------------------
+
+I8_SHAPES = [
+    # (convT, n, h, w, ci, co): odd H/W, K tails (ci 2 and 6 padded to 4
+    # and 8 -> K 36 / 72 of a 64-byte step; ci 48 -> K 432), a column tile
+    # cut short (co 200), M not a multiple of 128
+    (False, 2, 17, 23, 2, 128),
+    (False, 1, 31, 9, 6, 64),
+    (False, 3, 13, 11, 48, 200),
+    (False, 1, 8, 8, 256, 128),
+    (True, 2, 7, 9, 64, 32),
+    (True, 1, 5, 13, 48, 100),
+]
+
+
+def _i8_operands(dev, convt, n, h, w, ci, co, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    kh = 2 if convt else 3
+    x = torch.randint(-127, 128, (n, h, w, ci), generator=g,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (kh, kh, ci, co), generator=g,
+                       dtype=torch.int8)
+    scale = (torch.rand(co, generator=g) + 0.5) * 1e-4
+    bias = torch.randn(co, generator=g)
+    s_next = torch.rand(co, generator=g) * 0.02 + 0.005
+    return [t.to(dev) for t in (x, wq, scale, bias, s_next)]
+
+
+@pytest.mark.parametrize("requant", [None, "unsigned", "signed"])
+@pytest.mark.parametrize("shape", I8_SHAPES)
+def test_conv_i8_kernels_match_plain(dev, shape, requant):
+    """The int32 accumulator, the f32 epilogue and the int8 codes of the
+    kernel equal the plain version's (float64 on the codes) bit for bit."""
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    convt = shape[0]
+    x, wq, scale, bias, s_next = _i8_operands(dev, *shape)
+    fn = CI.convT2x2_i8 if convt else CI.conv3x3_i8
+    plain = CI.convT2x2_i8_plain if convt else CI.conv3x3_i8_plain
+    before = fn.launches
+    acc = fn(x, wq)
+    y = fn(x, wq, scale, bias, requant=requant,
+           s_next=None if requant is None else s_next)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(acc, plain(x, wq))
+    want = plain(x, wq, scale, bias, requant=requant,
+                 s_next=None if requant is None else s_next)
+    assert y.dtype == want.dtype and torch.equal(y, want)
+
+
+def test_conv_i8_dx_form_matches_plain(dev):
+    """int8 training's dx conv: signed codes, the flip-transposed weight
+    view (not contiguous), a per-tensor scale as a vector, no bias."""
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    x, wq, _, _, _ = _i8_operands(dev, False, 2, 16, 16, 64, 32, seed=3)
+    wt = wq.flip(0, 1).permute(0, 1, 3, 2)[..., :64]
+    dy = torch.randint(-127, 128, (2, 16, 16, 32), dtype=torch.int8,
+                       generator=torch.Generator().manual_seed(4)).to(dev)
+    s = torch.full((64,), 3e-5, device=dev)
+    y = CI.conv3x3_i8(dy, wt, s)
+    assert torch.equal(y, CI.conv3x3_i8_plain(dy, wt, s))
+
+
+def test_int8_artifact_from_the_cpu_serves_on_the_card(dev, tmp_path):
+    """An int8 artifact (base 8, 64x64) exported and calibrated on the CPU,
+    loaded on the card: its calls launch the int8 kernels, and its masks
+    equal the live int8 graph's on the card with the same parameters."""
+    from onet_tpu_torch.models import quant as TQ
+    from onet_tpu_torch.models.infer import fold_onet
+    from onet_tpu_torch.models.unet import tree_map
+    from onet_tpu_torch.ops import conv_i8 as CI
+    from onet_tpu_torch.serve.artifact import (export_serving_artifact,
+                                               load_serving_artifact)
+
+    params, state, _ = _serving_model(torch.device("cpu"), 8, 61)
+    calib = torch.rand((4, 64, 64, 1),
+                       generator=torch.Generator().manual_seed(62))
+    path = str(tmp_path / "q.onetp")
+    meta = export_serving_artifact(params, state, path, input_hw=(64, 64),
+                                   int8_calib=calib, device="cpu")
+    assert meta["arithmetic"] == "int8+bf16head" and meta["device"] == "cpu"
+    call, _ = load_serving_artifact(path, device=dev)
+    x = calib[:3].to(dev)
+    before = (CI.conv3x3_i8.launches, CI.convT2x2_i8.launches)
+    s, labels = call(x)
+    torch.cuda.synchronize()
+    assert (CI.conv3x3_i8.launches - before[0],
+            CI.convT2x2_i8.launches - before[1]) == (16, 4)
+    with torch.inference_mode():
+        folded = fold_onet(params, state)
+        q = TQ.quantize_folded(folded, TQ.calibrate(folded, calib))
+        q = tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t, q)
+        s_live, l_live = TQ.onet_infer_q(q, x)
+    assert s.device.type == "cuda" and labels.dtype == torch.int32
+    assert torch.equal(labels, l_live.to(torch.int32))
+    torch.testing.assert_close(s, s_live, rtol=0, atol=0)

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "preprocess.curation", "preprocess.onramp", "report.xlsx",
                 "report.tables", "train.zy3", "serve.tiles",
                 "serve.artifact", "data.export", "data.tilestore",
-                "data.verify"):
+                "data.verify", "models.quant", "models.qtrain",
+                "ops.conv_i8"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

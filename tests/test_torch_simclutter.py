@@ -194,7 +194,7 @@ def test_sigterm_drains_and_resumes(jax_data, port_init, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()), dict(pipeline_microbatches=2), dict(spatial=True),
-    dict(config=TS.SimclutterConfig(quantized="fwd")),
+    dict(config=TS.SimclutterConfig(arch="convnext")),
     dict(config=TS.SimclutterConfig(arch="swin")),
 ])
 def test_unported_options_raise(kw):

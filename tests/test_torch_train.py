@@ -356,11 +356,14 @@ def test_eval_step_matches_jax(model, align):
 
 def test_steps_refuse_what_is_not_ported():
     for kw in (dict(mesh=object()), dict(spatial=True),
-               dict(quantized="fwd"), dict(forward=lambda *a, **k: None)):
+               dict(forward=lambda *a, **k: None)):
         with pytest.raises(NotImplementedError):
             make_train_step(**kw)
     with pytest.raises(NotImplementedError):
         make_eval_step(mesh=object())
+    # int8 training is ported, for the vanilla backbone only (JAX's rule)
+    with pytest.raises(ValueError):
+        make_train_step(quantized="fwd", forward=lambda *a, **k: None)
 
 
 # ---------------------------------------------------------------------------
