@@ -2895,7 +2895,6 @@ def serving_surfaces(TC, dev, ckpt: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core operations/s
-Q_CALIB = 16            # calibration frames
 Q_BATCHES = (8, 32)
 Q_TRAIN_STEPS = 5
 Q_TRAIN_RTOL = 0.08     # the JAX package's gate, tests/test_qtrain.py:82
@@ -2904,7 +2903,9 @@ Q_AGREE_GATE = 0.999    # the ROADMAP's gate, measured by runs/quant_validate.py
 # phase 6's run is continued to this many epochs before it is quantized:
 # int8/bf16 mask agreement on the held-out split rises with training,
 # 0.988 at phase 6's 4 epochs, 0.990 at 10, 0.993 at 20, 0.995 at 40
-# (onet_tpu_torch/runs/quant_validate.py --train-epochs 4,10,20,40)
+# (onet_tpu_torch/runs/quant_validate.py --train-epochs 4,10,20,40); the
+# JAX package's own int8 graph reads 0.989 on phase 6's model as well
+# (runs/quant_witness.py)
 Q_EPOCHS = 20
 # int8 launches a served batch: one a site, inc.conv2 and up4.conv2 in
 # bf16 with head_bf16
@@ -2970,17 +2971,16 @@ def i8_check(CI, op, tag: str) -> float:
     rounding (their largest |difference| is returned)."""
     convt, x, w, scale, bias, s_next, mode, y = op
     x1 = x[:1]
-    acc = CI._launch(x1, w, None, None, None, CI._OUT_I32, convt)
-    ref = (CI.convT2x2_acc_plain if convt else CI.conv3x3_acc_plain)(x1, w)
+    acc = CI._launch(x1, w, None, None, None, CI.OUT_I32, convt)
+    ref = CI.plain(x1, w, None, None, None, CI.OUT_I32, convt)
     if not torch.equal(acc, ref):
         bad = int((acc != ref).sum())
         raise AssertionError(f"{tag}: {bad} int32 sums differ from plain")
-    requant = {CI._OUT_U8: "unsigned", CI._OUT_S8: "signed"}.get(mode)
-    want = CI.epilogue_plain(ref, scale, bias, requant, s_next)
+    want = CI.epilogue_plain(ref, scale, bias, s_next, mode)
     got = y[:1]
     if got.dtype != want.dtype:
         raise AssertionError(f"{tag}: {got.dtype} against {want.dtype}")
-    if requant is not None:
+    if mode in (CI.OUT_U8, CI.OUT_S8):
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"{tag}: {bad} int8 codes differ")
@@ -3007,13 +3007,13 @@ def i8_bound(op) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def i8_time(CI, op, plain: bool) -> dict:
+def i8_time(CI, op) -> dict:
     """A captured launch at its full batch: the kernel alone on operands
     laid out beforehand (L2 flushed; profiler device time; warm), the
     wrapper (with its per-call weight layout and input padding), the
     library call it stands beside (cuDNN's bf16 conv at the same shape;
     for the transposed conv ``torch._int_mm`` on its GEMM, no scatter),
-    and with ``plain`` the plain version (float64 on the codes, warm)."""
+    and the plain version (float64 on the codes, warm)."""
     import torch.nn.functional as F
 
     convt, x, w, scale, bias, s_next, mode, _ = op
@@ -3041,48 +3041,16 @@ def i8_time(CI, op, plain: bool) -> dict:
     t["library_ms"] = None if lib is None else cold_ms(lib)
     t["library_device_ms"] = None if lib is None else device_ms(lib)
     t["bound_ms"], t["bound_by"] = i8_bound(op)
-    if plain:
-        requant = {CI._OUT_U8: "unsigned", CI._OUT_S8: "signed"}.get(mode)
-        fn = CI.convT2x2_i8_plain if convt else CI.conv3x3_i8_plain
-        t["plain_ms"] = cuda_ms(lambda: fn(x, w, scale, bias,
-                                           requant=requant, s_next=s_next),
-                                reps=3, warmup=1)
+    t["plain_ms"] = cuda_ms(lambda: CI.plain(x, w, scale, bias, s_next, mode,
+                                             convt), reps=3, warmup=1)
     return t
 
 
-def q_data(dev) -> tuple:
-    """Frames at the checkpoint's training distribution, as the JAX
-    package's gate takes them (runs/quant_validate.py): phase 6's
-    simclutter datasets drawn anew from another seed; the calibration
-    batch is the first Q_CALIB frames of the train split, the held-out
-    frames the test split. Returns (calibration frames, held-out frames)."""
-    from onet_tpu_torch.data.simclutter import simclutter_datasets
+def log_agreement(q, folded, x, tag: str) -> dict:
+    """runs/quant_validate.py's mask agreements on ``x``, logged."""
+    from onet_tpu_torch.runs.quant_validate import agreement, graph_masks
 
-    train_ds, test_ds = simclutter_datasets(
-        torch.Generator(dev).manual_seed(SEED + 190),
-        low_snr=min(SIM_LEVELS), high_snr=max(SIM_LEVELS),
-        frames_per_level=SIM_FRAMES, crop=SIM_CROP, device=dev)
-    return train_ds["imgs"][:Q_CALIB].clone(), test_ds["imgs"].clone()
-
-
-def q_agreement(q, folded, x, tag: str) -> dict:
-    """Mask agreement of the int8 graph (both head forms) with the bf16
-    folded graph on ``x``; beside it the bf16 graph's own agreement with
-    the float32 graph (how close the model's masks sit to the edge)."""
-    from onet_tpu_torch.core.policy import BF16_COMPUTE, DEFAULT
-    from onet_tpu_torch.models.infer import onet_infer
-    from onet_tpu_torch.models.quant import onet_infer_q
-
-    out = {}
-    with torch.inference_mode():
-        _, l_bf = onet_infer(folded, x, policy=BF16_COMPUTE, pair_pack=False)
-        with DEFAULT.precision():
-            _, l_32 = onet_infer(folded, x, policy=DEFAULT, pair_pack=False)
-        for hb in (True, False):
-            _, l_q = onet_infer_q(q, x, head_bf16=hb)
-            out[f"head_bf16={hb}"] = float((l_q == l_bf).float().mean())
-        out["bf16_vs_f32"] = float((l_bf == l_32).float().mean())
-        out["foreground_share_bf16"] = float(l_bf.float().mean())
+    out = agreement(graph_masks(q, folded, x))
     log(f"[int8] mask agreement with the bf16 folded graph, {tag} "
         f"{tuple(x.shape)}: " + ", ".join(
             f"{k} {v:.6f}" for k, v in out.items()))
@@ -3123,13 +3091,14 @@ def q_serving(CI, dev, res, folded, calib, held) -> dict:
                 raise AssertionError(f"int8 S {tuple(s_q.shape)} or "
                                      "non-finite")
     res["launches"] = {str(hb): Q_LAUNCHES[hb] for hb in (True, False)}
-    log(f"[int8] calibration on {Q_CALIB} frames of the train split and "
+    log(f"[int8] calibration on {len(calib)} frames of the train split and "
         f"quantization {res['quantize_s']:.2f} s; launches a batch "
         f"{res['launches']}")
-    res["agreement"] = q_agreement(q, folded, held, "held-out test split")
-    res["agreement_512"] = q_agreement(q, folded, frames512[:8],
+    res["agreement"] = log_agreement(q, folded, held, "held-out test split")
+    res["agreement_512"] = log_agreement(q, folded, frames512[:8],
                                        "512^2 Rayleigh frames")
-    agree = [res["agreement"][f"head_bf16={hb}"] for hb in (True, False)]
+    agree = [res["agreement"][f"int8_head_bf16={hb}"] for hb in (True,
+                                                                 False)]
     log(f"[int8] held-out agreement {min(agree):.6f} against the contract "
         f"{Q_AGREE_MIN} (gated) and the ROADMAP's gate {Q_AGREE_GATE} "
         f"({'met' if min(agree) >= Q_AGREE_GATE else 'not met'})")
@@ -3154,18 +3123,21 @@ def q_serving(CI, dev, res, folded, calib, held) -> dict:
         log(f"[int8] head_bf16={hb}: all {len(ops)} launches of a batch-8 "
             f"step held on their batch-1 slices: int32 sums and int8 codes "
             f"bit-equal, f32 outputs within {err:.3e}")
-        if not hb:
+        if hb:
+            bf16_head_names = names
+        else:
             sites = dict(zip(names, ops))
         del ops
     res["max_abs_err"] = err
 
-    # each site's kernel timed at batch 8 (the plain version at the
-    # headline sites only)
+    # each site's kernel timed at batch 8, and its launches a served batch
+    # (bf16 head, int8 head)
     res["sites"] = {}
     with torch.inference_mode():
         for name, op in sites.items():
-            t = i8_time(CI, op, plain=name in Q_HEADLINE.values())
+            t = i8_time(CI, op)
             t["shape"] = [list(op[1].shape), list(op[2].shape)]
+            t["launches"] = [int(name in bf16_head_names), 1]
             res["sites"][name] = t
             log(f"[int8] site {name} x {tuple(op[1].shape)} w "
                 f"{tuple(op[2].shape)}: kernel {t['ms']:.4f} ms (device "
@@ -3173,8 +3145,8 @@ def q_serving(CI, dev, res, folded, calib, held) -> dict:
                 f"wrapper {t['wrapper_ms']:.4f}, bound {t['bound_ms']:.4f} "
                 f"({t['bound_by']}), library "
                 f"{fmt_ms(t['library_ms'], 4)} (device "
-                f"{fmt_ms(t['library_device_ms'], 4)})"
-                + (f", plain {t['plain_ms']:.3f}" if "plain_ms" in t else ""))
+                f"{fmt_ms(t['library_device_ms'], 4)}), plain "
+                f"{t['plain_ms']:.3f}; launches a batch {t['launches']}")
     del sites
     torch.cuda.empty_cache()
 
@@ -3411,17 +3383,15 @@ def int8_workload(dev, ckpt: str) -> dict:
     training."""
     from onet_tpu_torch.core.bridge import load_onet_npz
     from onet_tpu_torch.models.infer import fold_onet
-    from onet_tpu_torch.models.quant import calibrate, quantize_folded
     from onet_tpu_torch.models.unet import param_count
     from onet_tpu_torch.ops import conv_i8 as CI
+    from onet_tpu_torch.runs.quant_validate import held_out, quantized
 
     res = {}
-    calib, held = q_data(dev)
+    calib, held = held_out(dev)
     params, state, epoch = load_onet_npz(ckpt)
-    with torch.inference_mode():
-        folded = fold_onet(params, state)
-        q = quantize_folded(folded, calibrate(folded, calib))
-    res["agreement_phase6"] = q_agreement(
+    folded, _, q = quantized(params, state, calib)
+    res["agreement_phase6"] = log_agreement(
         q, folded, held, f"phase 6's checkpoint (epoch index {epoch}), "
         "held-out test split, not gated")
     del params, state, folded, q
@@ -3659,8 +3629,9 @@ def main() -> int:
             train_launches_per_step=(q8["train_launches_per_step"]
                                      if name == "conv3x3_i8" else 0),
             sites={k: {"ms": v["ms"], "device_ms": v["device_ms"],
-                       "bound_ms": v["bound_ms"],
-                       "library_ms": v["library_ms"]}
+                       "bound_ms": v["bound_ms"], "plain_ms": v["plain_ms"],
+                       "library_ms": v["library_ms"],
+                       "launches": v["launches"]}
                    for k, v in q8["sites"].items()
                    if k.endswith(".up") == (name == "convT2x2_i8")}))
     print(json.dumps({"kernels": rows}), flush=True)

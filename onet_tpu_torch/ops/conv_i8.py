@@ -48,9 +48,10 @@ from onet_tpu_torch.ops import _build
 
 QMAX = 127.0
 KPAD = 64                     # the kernel's K step, bytes
-REQUANT = {None: 0, "unsigned": 1, "signed": 2}
-# the kernel's out modes: int32, f32, unsigned and signed int8 codes
-_OUT_I32, _OUT_F32, _OUT_U8, _OUT_S8 = range(4)
+# the out modes, as the kernel takes them: int32 acc, f32, unsigned and
+# signed int8 codes
+OUT_I32, OUT_F32, OUT_U8, OUT_S8 = range(4)
+_REQUANT = {None: OUT_F32, "unsigned": OUT_U8, "signed": OUT_S8}
 
 
 # ---------------------------------------------------------------------------
@@ -73,32 +74,41 @@ def convT2x2_acc_plain(x, w):
     return y.permute(0, 2, 3, 1).round().to(torch.int32)
 
 
-def epilogue_plain(acc, scale=None, bias=None, requant=None, s_next=None):
+def out_mode(scale, requant) -> int:
+    """The out mode of a call with ``scale`` and ``requant``."""
+    return OUT_I32 if scale is None else _REQUANT[requant]
+
+
+def epilogue_plain(acc, scale, bias, s_next, mode: int):
     """The kernels' epilogue on an int32 accumulator (see the module
     docstring); divisions by tensors, so every device rounds alike."""
-    if scale is None:
+    if mode == OUT_I32:
         return acc
     y = acc.float() * scale
     if bias is not None:
         y = y + bias
-    if requant is None:
+    if mode == OUT_F32:
         return y
-    lo = 0.0 if requant == "unsigned" else -QMAX
+    lo = 0.0 if mode == OUT_U8 else -QMAX
     return torch.clamp(torch.round(y / s_next), lo, QMAX).to(torch.int8)
+
+
+def plain(x, w, scale, bias, s_next, mode: int, convt: bool):
+    """The plain version of one launch, operands as the kernel takes them."""
+    acc = (convT2x2_acc_plain if convt else conv3x3_acc_plain)(x, w)
+    return epilogue_plain(acc, scale, bias, s_next, mode)
 
 
 def conv3x3_i8_plain(x, w, scale=None, bias=None, *, requant=None,
                      s_next=None):
     """Plain version of ``conv3x3_i8``."""
-    return epilogue_plain(conv3x3_acc_plain(x, w), scale, bias, requant,
-                          s_next)
+    return plain(x, w, scale, bias, s_next, out_mode(scale, requant), False)
 
 
 def convT2x2_i8_plain(x, w, scale=None, bias=None, *, requant=None,
                       s_next=None):
     """Plain version of ``convT2x2_i8``."""
-    return epilogue_plain(convT2x2_acc_plain(x, w), scale, bias, requant,
-                          s_next)
+    return plain(x, w, scale, bias, s_next, out_mode(scale, requant), True)
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +124,7 @@ def _check(x, w, convt, scale, bias, requant, s_next):
             w.shape[2] != x.shape[3]:
         raise ValueError(f"{name}: x [N, H, W, ci] and w [{kh}, {kh}, ci, "
                          f"co], got {tuple(x.shape)} and {tuple(w.shape)}")
-    if requant not in REQUANT:
+    if requant not in _REQUANT:
         raise ValueError(f"requant must be None, 'unsigned' or 'signed', not "
                          f"{requant!r}")
     if (requant is None) != (s_next is None) or (scale is None and (
@@ -126,12 +136,6 @@ def _check(x, w, convt, scale, bias, requant, s_next):
         if t is not None and (t.shape != (co,) or t.dtype != torch.float32):
             raise ValueError(f"{name}: scale, bias and s_next are f32 [{co}], "
                              f"got {t.dtype} {tuple(t.shape)}")
-
-
-def _mode(scale, requant) -> int:
-    if scale is None:
-        return _OUT_I32
-    return (_OUT_F32, _OUT_U8, _OUT_S8)[requant]
 
 
 def _out_dtype(mode: int):
@@ -216,42 +220,38 @@ def _launch(x, w, scale, bias, s_next, mode, convt):
 # ---------------------------------------------------------------------------
 
 _SCHEMA = ("(Tensor x, Tensor w, Tensor? scale, Tensor? bias, "
-           "Tensor? s_next, int requant) -> Tensor")
+           "Tensor? s_next, int mode) -> Tensor")
 
 
-def _run(convt, x, w, scale, bias, s_next, requant):
-    mode_name = [k for k, v in REQUANT.items() if v == requant][0]
+def _run(convt, x, w, scale, bias, s_next, mode):
     name = "convT2x2_i8" if convt else "conv3x3_i8"
     if _build.on_cpu(x, name):
-        plain = convT2x2_i8_plain if convt else conv3x3_i8_plain
-        return plain(x, w, scale, bias, requant=mode_name, s_next=s_next)
-    y = _launch(x, w, scale, bias, s_next, _mode(scale, requant), convt)
+        return plain(x, w, scale, bias, s_next, mode, convt)
+    y = _launch(x, w, scale, bias, s_next, mode, convt)
     (convT2x2_i8 if convt else conv3x3_i8).launches += 1
     return y
 
 
 @torch.library.custom_op("onet_tpu_torch::conv3x3_i8", mutates_args=(),
                          schema=_SCHEMA)
-def _conv3x3_op(x, w, scale, bias, s_next, requant):
-    return _run(False, x, w, scale, bias, s_next, requant)
+def _conv3x3_op(x, w, scale, bias, s_next, mode):
+    return _run(False, x, w, scale, bias, s_next, mode)
 
 
 @torch.library.custom_op("onet_tpu_torch::convT2x2_i8", mutates_args=(),
                          schema=_SCHEMA)
-def _convT2x2_op(x, w, scale, bias, s_next, requant):
-    return _run(True, x, w, scale, bias, s_next, requant)
+def _convT2x2_op(x, w, scale, bias, s_next, mode):
+    return _run(True, x, w, scale, bias, s_next, mode)
 
 
 @_conv3x3_op.register_fake
-def _(x, w, scale, bias, s_next, requant):
-    return x.new_empty(_out_shape(x, w, False),
-                       dtype=_out_dtype(_mode(scale, requant)))
+def _(x, w, scale, bias, s_next, mode):
+    return x.new_empty(_out_shape(x, w, False), dtype=_out_dtype(mode))
 
 
 @_convT2x2_op.register_fake
-def _(x, w, scale, bias, s_next, requant):
-    return x.new_empty(_out_shape(x, w, True),
-                       dtype=_out_dtype(_mode(scale, requant)))
+def _(x, w, scale, bias, s_next, mode):
+    return x.new_empty(_out_shape(x, w, True), dtype=_out_dtype(mode))
 
 
 def conv3x3_i8(x, w, scale=None, bias=None, *, requant=None, s_next=None):
@@ -260,7 +260,7 @@ def conv3x3_i8(x, w, scale=None, bias=None, *, requant=None, s_next=None):
     ``requant`` ("unsigned" / "signed") its int8 codes at ``s_next``."""
     _check(x, w, False, scale, bias, requant, s_next)
     return torch.ops.onet_tpu_torch.conv3x3_i8(x, w, scale, bias, s_next,
-                                               REQUANT[requant])
+                                               out_mode(scale, requant))
 
 
 def convT2x2_i8(x, w, scale=None, bias=None, *, requant=None, s_next=None):
@@ -269,7 +269,7 @@ def convT2x2_i8(x, w, scale=None, bias=None, *, requant=None, s_next=None):
     ``conv3x3_i8``'s."""
     _check(x, w, True, scale, bias, requant, s_next)
     return torch.ops.onet_tpu_torch.convT2x2_i8(x, w, scale, bias, s_next,
-                                                REQUANT[requant])
+                                                out_mode(scale, requant))
 
 
 conv3x3_i8.launches = 0

@@ -39,7 +39,7 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "report.tables", "train.zy3", "serve.tiles",
                 "serve.artifact", "data.export", "data.tilestore",
                 "data.verify", "models.quant", "models.qtrain",
-                "ops.conv_i8"):
+                "ops.conv_i8", "runs.quant_validate"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
