@@ -117,6 +117,20 @@ Phases, each fatal on failure:
      steps each of exact, "fwd" and "fwd+dx" at 512^2 batch 8 from phase
      4's init (18 and 35 launches a step, step-5 loss within 0.08); one
      simclutter epoch with quantized="fwd+dx" (35 launches a step).
+ 11. the other model families and the baselines (``families_workload``)
+     at full width, bf16 (the baselines float32), none of the hand-written
+     kernels launched (all ten counters asserted unchanged): Swin-T,
+     ConvNeXt-T and ViT-B TransUNet twins through the ZY-3 driver with
+     arch= (phase 8's data and defaults, one epoch each), each reloaded
+     through load_arch_auto bit-equal, each step alone at phase 8's and
+     phase 6's shapes (ms, frames/s, idle share, peak memory); Swin
+     through the simclutter driver (one epoch at its defaults) and
+     verify_checkpoint_dir over its checkpoint and phase 6's vanilla one
+     (levels 0, 5, 10 x 150 frames); a 512^2 batch-8 forward per backbone
+     (Swin window 8, TransUNet's position table resized 14 -> 32); IIC
+     and InfoSeg, one epoch each of their train() at their defaults;
+     every family's card float32 forward on 2 frames against its CPU
+     float32 forward (atol 2e-5, rtol 1e-4, fatal).
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -3040,6 +3054,9 @@ def i8_time(CI, op) -> dict:
         lib = lambda: F.conv2d(xb, wb, padding=1)   # noqa: E731
     t["library_ms"] = None if lib is None else cold_ms(lib)
     t["library_device_ms"] = None if lib is None else device_ms(lib)
+    # events behind a spin kernel, no profiler: a time where the
+    # profiler drops the library call's records
+    t["library_queued_ms"] = None if lib is None else queued_ms(lib)
     t["bound_ms"], t["bound_by"] = i8_bound(op)
     t["plain_ms"] = cuda_ms(lambda: CI.plain(x, w, scale, bias, s_next, mode,
                                              convt), reps=3, warmup=1)
@@ -3145,7 +3162,8 @@ def q_serving(CI, dev, res, folded, calib, held) -> dict:
                 f"wrapper {t['wrapper_ms']:.4f}, bound {t['bound_ms']:.4f} "
                 f"({t['bound_by']}), library "
                 f"{fmt_ms(t['library_ms'], 4)} (device "
-                f"{fmt_ms(t['library_device_ms'], 4)}), plain "
+                f"{fmt_ms(t['library_device_ms'], 4)}, queued "
+                f"{fmt_ms(t['library_queued_ms'], 4)}), plain "
                 f"{t['plain_ms']:.3f}; launches a batch {t['launches']}")
     del sites
     torch.cuda.empty_cache()
@@ -3412,6 +3430,387 @@ def int8_workload(dev, ckpt: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other model families and the baselines
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("swin", "convnext", "transunet")   # at the registry's defaults:
+# Swin-T (embed 96, depths 2-2-2-2, heads 3-6-12-24, window 7), ConvNeXt-T
+# (embed 96, depths 3-3-9-3), TransUNet ViT-B (embed 768, depth 12,
+# img_size 224)
+FAM_EPOCHS = 1                  # of Zy3Config's 11 / SimclutterConfig's 301
+FAM_SERVE_HW, FAM_SERVE_BATCH = 512, 8   # the serving shape of phase 3
+FAM_VERIFY_LEVELS = (0, 5, 10)  # per_snr_datasets' levels for the mixed dir
+FAM_CHECK_FRAMES = 2            # card float32 against CPU float32
+PHASE11_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke_phase11")
+
+
+def all_launches() -> dict:
+    """Every hand-written kernel wrapper's launch counter."""
+    from onet_tpu_torch.ops import conv_bd as BD
+    from onet_tpu_torch.ops import conv_i8 as CI
+    from onet_tpu_torch.ops import conv_wp as TC
+    from onet_tpu_torch.ops import head as HD
+
+    fns = {"conv3x3_wp": TC.conv3x3_wp_raw, "conv3x3_wp2": TC.conv3x3_wp2_raw,
+           "conv3x3_wp_dw": TC.conv3x3_wp_dw, "jsd_loss_fwd": HD.jsd_loss_fwd,
+           "jsd_loss_bwd": HD.jsd_loss_bwd,
+           "minmax_complement": HD.minmax_complement,
+           "conv3x3_bd": BD.conv3x3_bd_raw,
+           "conv3x3_bd2in": BD.conv3x3_bd2in_raw,
+           "conv3x3_i8": CI.conv3x3_i8, "convT2x2_i8": CI.convT2x2_i8}
+    return {k: f.launches for k, f in fns.items()}
+
+
+def fam_step_times(tag, step, frames: int) -> dict:
+    """A train step's ms (CUDA events, median of 5 after 2 warm-ups),
+    frames/s, and the profiler's idle share of one step."""
+    ms = cuda_ms(step)
+    prof = breakdown(step, f"{tag} train step", top=5)
+    return {"step_ms": ms, "frames_per_s": frames / ms * 1e3,
+            "idle_share": prof["idle_share"], "kernels": prof["kernels"]}
+
+
+def fam_zy3(dev, res, train_ds, test_ds) -> None:
+    """Phase 11, step 1: each backbone through train/zy3.py's train() with
+    arch= (Zy3Config's defaults, FAM_EPOCHS epoch), its epoch's train and
+    eval times read around the driver's own calls, peak memory, parameter
+    count, the milestone reloaded through load_arch_auto (bit-equal to the
+    returned state); then its train step alone at phase 8's shape."""
+    import glob
+    import tempfile
+
+    from onet_tpu_torch.core.checkpoint import load_arch_auto
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.data.augment import augment_batch
+    from onet_tpu_torch.core.prng import make_generator
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.models.unet import param_count, tree_leaves, tree_map
+    from onet_tpu_torch.train import zy3 as Z
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    for name in FAMILIES:
+        marks = {"train": [], "eval": [], "eval_end": []}
+        real_eval, real_iter = Z.evaluate_zy3, Z.batch_iterator
+
+        def timed_eval(*a, **kw):
+            torch.cuda.synchronize()
+            marks["eval"].append(time.perf_counter())
+            out = real_eval(*a, **kw)
+            torch.cuda.synchronize()
+            marks["eval_end"].append(time.perf_counter())
+            return out
+
+        def marked_iter(ds, batch_size, *, gen=None, **kw):
+            if gen is not None:
+                torch.cuda.synchronize()
+                marks["train"].append(time.perf_counter())
+            return real_iter(ds, batch_size, gen=gen, **kw)
+
+        out_root = tempfile.mkdtemp(prefix=f"onet_{name}_zy3_")
+        cfg = Z.Zy3Config(epoch_nums=FAM_EPOCHS, arch=name, save_epochs=(),
+                          model_name=f"onet_{name}_zy3", out_root=out_root)
+        Z.evaluate_zy3, Z.batch_iterator = timed_eval, marked_iter
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, hist = Z.train(cfg, train_ds, test_ds,
+                                          policy=BF16_COMPUTE, log=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            Z.evaluate_zy3, Z.batch_iterator = real_eval, real_iter
+        train_s = marks["eval"][0] - marks["train"][0]
+        eval_s = marks["eval_end"][0] - marks["eval"][0]
+        m = hist["eval"][FAM_EPOCHS - 1]
+        if not all(np.isfinite(hist["loss"])) or not all(
+                0.0 <= m[k] <= 1.0 for k in ("acc", "miou", "dr", "far",
+                                              "tiou")):
+            raise AssertionError(f"{name}: zy3 history off: {hist}")
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+            raise AssertionError(f"{name}: non-finite parameter")
+        saved = glob.glob(os.path.join(out_root, f"{cfg.model_name}_epoch"
+                                       f"{FAM_EPOCHS - 1}_*.npz"))
+        if len(saved) != 1:
+            raise AssertionError(f"{name}: milestones {os.listdir(out_root)}")
+        t0 = time.perf_counter()
+        arch, p2, s2, e2 = load_arch_auto(saved[0])
+        reload_s = time.perf_counter() - t0
+        if arch.name != name or e2 != FAM_EPOCHS - 1 or s2 != {"top": {}} \
+                or not all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(p2), tree_leaves(params))):
+            raise AssertionError(f"{name}: load_arch_auto gave another model")
+        shutil.rmtree(out_root)
+        del p2
+        rec = {"params": param_count(params), "loss": hist["loss"],
+               "eval": m, "train_s": train_s, "eval_s": eval_s,
+               "driver_frames_per_s": len(train_ds) * FAM_EPOCHS / train_s,
+               "train_wall_s": wall, "peak_gib": peak,
+               "reload_s": reload_s}
+        # the step alone at phase 8's shape: batch 5, augmented, 224^2 RGB
+        arch = get_arch(name)
+        p = tree_map(torch.clone, params)
+        opt = adam_init(p)
+        step = make_train_step(policy=BF16_COMPUTE, forward=arch.forward)
+        x = augment_batch(make_generator(SEED + 110, dev),
+                          train_ds["imgs"][:cfg.batch_sz])
+        torch.cuda.reset_peak_memory_stats()
+        rec["zy3_step"] = fam_step_times(
+            f"[families] {name} zy3", lambda: step(p, state, opt, x, 1e-4),
+            cfg.batch_sz)
+        rec["zy3_step"]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+        del p, opt, params
+        res[name] = rec
+        log(f"[families] {name} zy3 train(): {rec['params']} params, epoch "
+            f"train {train_s:.3f} s ({rec['driver_frames_per_s']:.1f} "
+            f"frames/s), eval {eval_s:.3f} s, peak {peak:.2f} GiB, loss "
+            f"{hist['loss']}, eval {m}; load_arch_auto {reload_s:.2f} s; "
+            f"step alone (batch 5) {rec['zy3_step']['step_ms']:.3f} ms "
+            f"({rec['zy3_step']['frames_per_s']:.1f} frames/s, idle share "
+            f"{rec['zy3_step']['idle_share']:.3f}, "
+            f"{rec['zy3_step']['kernels']} kernels)")
+
+
+def fam_phase6_steps(dev, res) -> None:
+    """Phase 11, step 2: each backbone's train step at phase 6's shape
+    (batch 10, 224^2, one channel), from a seeded init."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    x = torch.rand((SIM_BATCH, SIM_CROP, SIM_CROP, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    for name in FAMILIES:
+        arch = get_arch(name)
+        p, s = arch.init(torch.Generator().manual_seed(SEED), 1)
+        opt = adam_init(p)
+        step = make_train_step(policy=BF16_COMPUTE, forward=arch.forward)
+        torch.cuda.reset_peak_memory_stats()
+        rec = fam_step_times(f"[families] {name} simclutter",
+                             lambda: step(p, s, opt, x, 1e-5), SIM_BATCH)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res[name]["sim_step"] = rec
+        log(f"[families] {name} step at phase 6's shape (batch "
+            f"{SIM_BATCH}, {SIM_CROP}^2, 1 channel): {rec['step_ms']:.3f} "
+            f"ms, {rec['frames_per_s']:.1f} frames/s, idle share "
+            f"{rec['idle_share']:.3f}, peak {rec['peak_gib']:.2f} GiB")
+        del p, s, opt
+        torch.cuda.empty_cache()
+
+
+def fam_simclutter(dev, res, vanilla_ckpt: str) -> None:
+    """Phase 11, step 3: train/simclutter.py's train(arch="swin") for
+    FAM_EPOCHS epoch at SimclutterConfig's defaults (data generated by the
+    driver on the card), then verify_checkpoint_dir over its milestone and
+    phase 6's vanilla checkpoint in one directory."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.train import simclutter as SC
+    from onet_tpu_torch.train.sweeps import per_snr_datasets, verify_checkpoint_dir
+
+    out_root = os.path.join(PHASE11_DIR, "mixed")
+    os.makedirs(out_root, exist_ok=True)
+    cfg = SC.SimclutterConfig(epoch_nums=FAM_EPOCHS, arch="swin",
+                              model_name="onet_swin_rayleigh",
+                              save_epochs=(), out_root=out_root)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, hist = SC.train(cfg, policy=BF16_COMPUTE, log=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = hist["eval"][FAM_EPOCHS - 1]
+    if not all(np.isfinite(hist["loss"])) or not all(
+            0.0 <= v <= 1.0 for v in m.values()):
+        raise AssertionError(f"swin simclutter history off: {hist}")
+    shutil.copy(vanilla_ckpt, out_root)
+    ds = per_snr_datasets(7, levels=FAM_VERIFY_LEVELS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    report = verify_checkpoint_dir(out_root, datasets_by_psnr=ds,
+                                   policy=BF16_COMPUTE)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t1
+    archs = sorted(r["arch"] for r in report.values())
+    if archs != ["swin", "vanilla"] or not all(
+            0.0 <= r["per_snr"]["ave"][k] <= 1.0 for r in report.values()
+            for k in ("acc", "miou")):
+        raise AssertionError(f"mixed-family verify_checkpoint_dir: {report}")
+    res["simclutter_swin"] = {
+        "train_wall_s": wall, "loss": hist["loss"], "eval": m,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "verify_s": verify_s,
+        "verify": {f: {"arch": r["arch"], "epoch": r["epoch"],
+                       "ave": r["per_snr"]["ave"]}
+                   for f, r in report.items()}}
+    shutil.rmtree(out_root)
+    log(f"[families] simclutter train(arch='swin'), {FAM_EPOCHS} epoch: "
+        f"{wall:.2f} s with generation, loss {hist['loss']}, eval {m}; "
+        f"verify_checkpoint_dir (swin + phase 6's vanilla, levels "
+        f"{FAM_VERIFY_LEVELS} x 150 frames) {verify_s:.2f} s: " + "; ".join(
+            f"{r['arch']} acc {r['per_snr']['ave']['acc']:.4f} miou "
+            f"{r['per_snr']['ave']['miou']:.4f}" for r in report.values()))
+
+
+def fam_serving(dev, res) -> None:
+    """Phase 11, step 4: a serving-size forward per backbone, bf16,
+    512^2, batch 8 (16 frames through the weight-shared [2B] pass): Swin a
+    window-8 init (its stages 128/64/32/16 are multiples of 8), TransUNet's
+    14x14 position table resized to 32x32."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.arch import get_arch
+
+    x = torch.rand((FAM_SERVE_BATCH, FAM_SERVE_HW, FAM_SERVE_HW, 1),
+                   device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    for name in FAMILIES:
+        arch = get_arch(name, swin_window=8)
+        p, s = arch.init(torch.Generator().manual_seed(SEED), 1)
+        if name == "transunet":
+            assert tuple(p["top"]["pos"].shape[:2]) == (14, 14)
+
+        def fwd():
+            with torch.no_grad(), BF16_COMPUTE.precision():
+                return arch.forward(p, s, x, policy=BF16_COMPUTE)[0].S
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        if out.shape != (FAM_SERVE_BATCH, FAM_SERVE_HW, FAM_SERVE_HW, 2) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} 512^2 forward {tuple(out.shape)}")
+        ms = cuda_ms(fwd)
+        prof = breakdown(fwd, f"[families] {name} 512^2 forward", top=5)
+        rec = {"ms": ms, "frames_per_s": FAM_SERVE_BATCH / ms * 1e3,
+               "idle_share": prof["idle_share"], "kernels": prof["kernels"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        res[name]["serve_512"] = rec
+        log(f"[families] {name} forward, bf16, {FAM_SERVE_HW}^2 batch "
+            f"{FAM_SERVE_BATCH}: {ms:.3f} ms ({rec['frames_per_s']:.1f} "
+            f"frames/s), idle share {rec['idle_share']:.3f}, peak "
+            f"{rec['peak_gib']:.2f} GiB")
+        del p, s, out
+
+
+def fam_baselines(dev, res) -> None:
+    """Phase 11, step 5: IIC and InfoSeg, FAM_EPOCHS epoch each of their
+    train() at their defaults (levels 0-2 x 150 frames generated on the
+    card, 224^2, batch 10, float32), each epoch's time and the final
+    checkpoint."""
+    import glob
+
+    from onet_tpu_torch.train import iic as TI
+    from onet_tpu_torch.train import infoseg as TF
+
+    for name, mod, cfg in (
+            ("iic", TI, TI.IICConfig(epoch_nums=FAM_EPOCHS,
+                                     out_root=os.path.join(PHASE11_DIR,
+                                                           "iic"))),
+            ("infoseg", TF, TF.InfoSegConfig(
+                epoch_nums=FAM_EPOCHS,
+                out_root=os.path.join(PHASE11_DIR, "infoseg")))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, hist = mod.train(cfg, log=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = hist["eval"][FAM_EPOCHS - 1]
+        saved = glob.glob(os.path.join(cfg.out_root, f"{cfg.model_name}_*_"
+                                       f"epoch_{FAM_EPOCHS - 1}.npz"))
+        if len(saved) != 1 or not all(np.isfinite(hist["loss"])) or not all(
+                0.0 <= v <= 1.0 for v in m.values()):
+            raise AssertionError(f"{name}: {hist}, saved {saved}")
+        res[name] = {"train_wall_s": wall, "loss": hist["loss"], "eval": m,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        shutil.rmtree(cfg.out_root)
+        log(f"[families] {name} train(), {FAM_EPOCHS} epoch with generation: "
+            f"{wall:.2f} s, peak {res[name]['peak_gib']:.2f} GiB, loss "
+            f"{hist['loss']}, eval {m}")
+
+
+def fam_card_vs_cpu(dev, res) -> None:
+    """Phase 11, step 6: per family, the card's float32 forward on
+    FAM_CHECK_FRAMES frames against the port's CPU float32 forward of the
+    same weights (atol 2e-5, rtol 1e-4 on S, or the baselines' probs)."""
+    from onet_tpu_torch.core.policy import DEFAULT
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.models.iic import iic_forward, iic_init
+    from onet_tpu_torch.models.infoseg import infoseg_forward, infoseg_init
+    from onet_tpu_torch.models.unet import tree_map
+
+    g = np.random.default_rng(SEED + 111)
+    res["card_vs_cpu"] = {}
+    for name in FAMILIES + ("iic", "infoseg"):
+        cin = 1 if name in ("iic", "infoseg") else 3
+        x = torch.tensor(g.uniform(0, 1, (FAM_CHECK_FRAMES, ZY3_SIZE,
+                                          ZY3_SIZE, cin)), dtype=torch.float32)
+        gen = torch.Generator().manual_seed(SEED)
+        if name == "iic":
+            p, s = iic_init(gen, 1, device="cpu")
+            run = lambda p, s, x: iic_forward(p, s, x)[0].probs   # noqa: E731
+        elif name == "infoseg":
+            p, s = infoseg_init(gen, 1, device="cpu")
+            run = lambda p, s, x: infoseg_forward(p, s, x)[0].probs  # noqa: E731
+        else:
+            arch = get_arch(name)
+            p, s = arch.init(gen, cin, device="cpu")
+            run = lambda p, s, x, f=arch.forward: f(p, s, x)[0].S  # noqa: E731
+        with torch.no_grad(), DEFAULT.precision():
+            want = run(p, s, x)
+            got = run(tree_map(lambda t: t.to(dev), p),
+                      tree_map(lambda t: t.to(dev), s), x.to(dev)).cpu()
+        err = float((got - want).abs().max())
+        res["card_vs_cpu"][name] = err
+        log(f"[families] {name}: card float32 forward on {FAM_CHECK_FRAMES} "
+            f"{ZY3_SIZE}^2 frames against the CPU's: max abs err {err:.3e}")
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+def families_workload(dev, vanilla_ckpt: str) -> dict:
+    """Phase 11: the other model families and the baselines at full width
+    on the card (Swin-T, ConvNeXt-T and ViT-B TransUNet twins on the
+    stateless Onet container; IIC and InfoSeg at base 64), with none of
+    the hand-written kernels launched:
+
+    1. each backbone through the ZY-3 driver with arch= (phase 8's data
+       and defaults: 250 + 50 synthetic RGB 224^2 scenes, batch 5,
+       augmented, bf16, one epoch), its reload through load_arch_auto,
+       its step alone;
+    2. each backbone's step at phase 6's shape (batch 10, 224^2);
+    3. Swin through the simclutter driver (one epoch at its defaults), and
+       verify_checkpoint_dir over it and phase 6's vanilla checkpoint;
+    4. a 512^2 batch-8 bf16 forward per backbone (Swin window 8,
+       TransUNet's position table resized to 32x32);
+    5. IIC and InfoSeg, one epoch each of their train();
+    6. every family's card float32 forward against its CPU one."""
+    res = {}
+    before = all_launches()
+    os.makedirs(PHASE11_DIR, exist_ok=True)
+    train_ds, test_ds, _, gen_s = zy3_data(dev)
+    res["generate_s"] = gen_s
+    fam_zy3(dev, res, train_ds, test_ds)
+    del train_ds, test_ds
+    fam_phase6_steps(dev, res)
+    fam_simclutter(dev, res, vanilla_ckpt)
+    fam_serving(dev, res)
+    fam_baselines(dev, res)
+    fam_card_vs_cpu(dev, res)
+    after = all_launches()
+    res["launches"] = {k: after[k] - before[k] for k in after}
+    log(f"[families] hand-written kernel launches in phase 11: "
+        f"{res['launches']}")
+    if any(res["launches"].values()):
+        raise AssertionError(f"phase 11 launched hand-written kernels: "
+                             f"{res['launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -3479,8 +3878,10 @@ def main() -> int:
     t0 = time.perf_counter()
     os.makedirs(PHASE9_DIR, exist_ok=True)
     os.makedirs(PHASE10_DIR, exist_ok=True)
+    os.makedirs(PHASE11_DIR, exist_ok=True)
     ckpt = shutil.copy(newest_checkpoint(sim["out_root"]), PHASE9_DIR)
     ckpt10 = shutil.copy(ckpt, PHASE10_DIR)
+    ckpt11 = shutil.copy(ckpt, PHASE11_DIR)
     with pair_pack(O, True):
         try:
             det = detection_workload(TC, dev, sim["out_root"])
@@ -3541,6 +3942,20 @@ def main() -> int:
         f"{q8['b8_bf16_wp_step_ms']:.3f} ms; mask agreement "
         f"{q8['agreement']}; train step ms {q8['train_step_ms']}; on {card}")
     log(f"[phase10] phase took {q8['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        fam = families_workload(dev, ckpt11)
+    finally:
+        shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    fam["phase_s"] = time.perf_counter() - t0
+    log("[families] " + json.dumps(fam))
+    log(f"[families] on {card}: " + "; ".join(
+        f"{k} zy3 step {fam[k]['zy3_step']['step_ms']:.2f} ms "
+        f"({fam[k]['zy3_step']['frames_per_s']:.1f} frames/s, idle "
+        f"{fam[k]['zy3_step']['idle_share']:.3f}), 512^2 forward "
+        f"{fam[k]['serve_512']['ms']:.2f} ms" for k in FAMILIES))
+    log(f"[phase11] phase took {fam['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():

@@ -34,24 +34,36 @@ from onet_tpu_torch.core.bridge import (TORCH_EXTS, import_torch_checkpoint,
 from onet_tpu_torch.models.unet import tree_leaves
 
 
-def _flatten(tree, prefix: str, path: str = "") -> Dict[str, np.ndarray]:
-    """{prefix + "a/b/c": host copy of the leaf}: the leaves copied to the
-    host, synchronized, into memory no later step can write."""
+def _children(tree):
+    """(name, child) pairs of a dict (sorted keys) or a list (indices):
+    the path segments the JAX package's ``tree_flatten_with_path`` gives
+    (a dict key, a list index)."""
     if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), t) for i, t in enumerate(tree)]
+
+
+def _flatten(tree, prefix: str, path: str = "") -> Dict[str, np.ndarray]:
+    """{prefix + "a/b/0/c": host copy of the leaf}: the leaves copied to
+    the host, synchronized, into memory no later step can write."""
+    if isinstance(tree, (dict, list)):
         flat = {}
-        for k in sorted(tree):
-            flat.update(_flatten(tree[k], prefix,
-                                 f"{path}/{k}" if path else str(k)))
+        for k, child in _children(tree):
+            flat.update(_flatten(child, prefix,
+                                 f"{path}/{k}" if path else k))
         return flat
     return {prefix + path: tree.detach().to("cpu", copy=True).numpy()}
 
 
 def _unflatten(template, flat: Dict[str, np.ndarray], prefix: str,
                path: str = ""):
-    if isinstance(template, dict):
-        return {k: _unflatten(v, flat, prefix,
-                              f"{path}/{k}" if path else str(k))
-                for k, v in template.items()}
+    if isinstance(template, (dict, list)):
+        built = {k: _unflatten(child, flat, prefix,
+                               f"{path}/{k}" if path else k)
+                 for k, child in _children(template)}
+        if isinstance(template, list):
+            return [built[str(i)] for i in range(len(template))]
+        return {k: built[str(k)] for k in template}
     key = prefix + path
     if key not in flat:
         raise KeyError(
@@ -241,12 +253,20 @@ def load_checkpoint(path: str, params_template, state_template,
 def load_arch_auto(path: str, device=None):
     """Load a checkpoint by its own '__meta__' (meta-less files resolve to
     the vanilla conv U-Net). Returns (arch, params, bn_state, epoch).
-    Other model families are not in the port yet (ROADMAP.md, Queue A
-    item 6): ``models/arch.py`` raises NotImplementedError for them."""
+    Another family (``swin``, ``convnext``, ``transunet``) is built from
+    the file's meta (its geometry, input channels and twin-ness) and then
+    loaded into, key for key."""
     from onet_tpu_torch.models.arch import arch_from_meta
 
-    arch = arch_from_meta(read_checkpoint_meta(path))
-    params, bn_state, epoch = load_onet_auto(path, device)
+    meta = read_checkpoint_meta(path)
+    arch = arch_from_meta(meta)
+    if arch.vanilla:
+        params, bn_state, epoch = load_onet_auto(path, device)
+        return arch, params, bn_state, epoch
+    params, bn_state = arch.init(
+        torch.Generator().manual_seed(0), meta.get("in_channels", 1),
+        weight_share=meta.get("weight_share", True), device=device)
+    params, bn_state, epoch = load_checkpoint(path, params, bn_state)
     return arch, params, bn_state, epoch
 
 

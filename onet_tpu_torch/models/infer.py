@@ -43,6 +43,15 @@ def fold_unet(params, state):
 
 
 def fold_onet(params, state):
+    """The BN-folded tree of a vanilla Onet. The other families (swin,
+    convnext, transunet) have no BatchNorm to fold, so neither the folded
+    graph nor its int8 form applies to them: they are refused here."""
+    if "inc" not in params["top"]:
+        raise ValueError(
+            "BN folding, int8 quantization and the folded serving artifact "
+            "apply to the vanilla conv U-Net; this is a stateless-backbone "
+            "family (swin, convnext or transunet): serve its forward "
+            "(models/arch.py), or export it with export_fn_artifact")
     folded = {"top": fold_unet(params["top"], state["top"])}
     if not is_weight_shared(params):
         folded["down"] = fold_unet(params["down"], state["down"])

@@ -154,6 +154,35 @@ def onet_forward(params, state, x, *, train: bool, bias: float = 0.0,
     return OnetOutput(Lt=lt, Ld=ld, Vt=vt, Vd=vd, S=s), new_state
 
 
+def stateless_onet_forward(apply_fn, params, state, x, *, bias: float = 0.0,
+                           policy: Policy = DEFAULT):
+    """The Onet container of the stateless (LayerNorm) backbones, Swin-Unet,
+    ConvNeXt-UNet and TransUNet (``models/arch.py``).
+
+    ``apply_fn(branch_params, x, policy=...) -> (loc, glob)``, both
+    [N, H, W, C]. With no statistics across samples, the weight-shared twin
+    runs [X; 1-X] as one [2B] batch, equal to the two branch passes one
+    after the other; twin nets run one pass each. The head is the vanilla
+    Onet's: V = channel_dot(L, H), S = softmax([Vt, Vd]), and Lsum the
+    channel sums the JSD loss reads. ``state`` (empty dicts) comes back as
+    it went in."""
+    xd = complement(x, bias)
+    b = x.shape[0]
+    if is_weight_shared(params):
+        loc, glob = apply_fn(params["top"], torch.cat([x, xd], dim=0),
+                             policy=policy)
+        lt, ld, ht, hd = loc[:b], loc[b:], glob[:b], glob[b:]
+    else:
+        lt, ht = apply_fn(params["top"], x, policy=policy)
+        ld, hd = apply_fn(params["down"], xd, policy=policy)
+    vt = channel_dot(lt.float(), ht.float())
+    vd = channel_dot(ld.float(), hd.float())
+    s = torch.softmax(torch.stack([vt, vd], dim=-1), dim=-1)
+    lsum = torch.stack([torch.sum(lt.float(), dim=-1),
+                        torch.sum(ld.float(), dim=-1)], dim=-1)
+    return OnetOutput(Lt=lt, Ld=ld, Vt=vt, Vd=vd, S=s, Lsum=lsum), state
+
+
 def predict_label(s: torch.Tensor) -> torch.Tensor:
     """argmax over the class pair: 0 = top wins, 1 = down wins. [B, H, W]."""
     return torch.argmax(s, dim=-1)

@@ -225,9 +225,12 @@ def unet_apply(params, state, x, *, train: bool, groups: int = 1,
 # ---------------------------------------------------------------------------
 
 def tree_leaves(tree):
-    """Leaves of a nested dict, in key order."""
+    """Leaves of a nested tree of dicts and lists: dict keys in sorted
+    order, list elements in index order (the JAX package's leaf order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
@@ -238,17 +241,22 @@ def tree_unflatten(like, leaves):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [build(v) for v in t]
         return next(it)
 
     return build(like)
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` applied to every leaf of a nested dict (leaf by leaf across
-    ``rest``, trees of the same structure)."""
+    """``fn`` applied to every leaf of a nested tree of dicts and lists
+    (leaf by leaf across ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -39,10 +39,10 @@ CLASSIFIED_OPTIONS = {
 }
 
 
-def _predict(params, bn_state, x, policy: Policy):
+def _predict(params, bn_state, x, policy: Policy, forward=None):
     with torch.no_grad(), policy.precision():
-        out, _ = onet_forward(params, bn_state, x, train=False,
-                              policy=policy)
+        out, _ = (forward or onet_forward)(params, bn_state, x, train=False,
+                                           policy=policy)
         return predict_label(out.S)
 
 
@@ -85,11 +85,12 @@ def load_division_table(path: str, group_col: str = "group",
 
 
 def score_variants(params, bn_state, x: torch.Tensor, lab: torch.Tensor, *,
-                   policy: Policy = DEFAULT):
+                   policy: Policy = DEFAULT, forward=None):
     """One forward over the [K, H, W, 3] variant stack of one image;
     per-variant (acc [K], miou [K]) of the RAW argmax against the shared
-    mask [H, W] (the reference scores it with no reorder)."""
-    pred = _predict(params, bn_state, x, policy)
+    mask [H, W] (the reference scores it with no reorder). ``forward``:
+    another backbone family's forward (``models/arch.py``)."""
+    pred = _predict(params, bn_state, x, policy, forward)
     lab = lab.expand_as(pred)
     return (torch.func.vmap(accuracy)(pred, lab),
             torch.func.vmap(miou)(pred, lab))

@@ -34,7 +34,6 @@ from onet_tpu_torch.preprocess.curation import (CLASSIFIED_OPTIONS,
                                                 score_variants)
 from onet_tpu_torch.preprocess.image import (PRE_OPTIONS, apply_pre_option,
                                              thumbnail_rgb)
-from onet_tpu_torch.train.steps import _not_ported
 from onet_tpu_torch.utils.summary import scr_db
 
 # The reference applies its strongest option only to the one scene it was
@@ -166,10 +165,11 @@ def _groups_of(groups) -> Dict[str, str]:
 def _scored(params, bn_state, u8, lab, opts, policy, forward):
     """Score the variants ``opts`` of one thumbnail: one forward, one host
     read. Returns (the variant stack, accs, mious, org_snr, pre_snr) with
-    the SNRs of the raw image and of the best-mIoU variant."""
-    _not_ported(forward=forward)       # other backbone families
+    the SNRs of the raw image and of the best-mIoU variant. ``forward``
+    swaps in another backbone family's forward (``models/arch.py``)."""
     stack = torch.stack([apply_pre_option(u8, o) for o in opts])
-    accs, mious = score_variants(params, bn_state, stack, lab, policy=policy)
+    accs, mious = score_variants(params, bn_state, stack, lab, policy=policy,
+                                 forward=forward)
     k = torch.argmax(mious)               # the first best, as a stable sort
     org = scr_db(apply_pre_option(u8, "raw_rgb"), lab[..., None])
     pre = scr_db(stack[k], lab[..., None])

@@ -8,9 +8,8 @@ measure_snr_on_fg (Train_Onet_on_simclutter_20250407.py:46-95): the SNR of
 the foreground branch's projection map, normalized per frame, over the
 input's.
 
-``forward`` selects another backbone in the JAX package; the port has the
-vanilla conv U-Net, and any other ``forward`` raises NotImplementedError
-(ROADMAP.md, Queue A item 6), as ``make_eval_step`` does.
+``forward`` swaps in another backbone family's forward
+(``models/arch.py``); the default is the vanilla conv U-Net.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ from onet_tpu_torch.metrics.segmentation import (
     align_labels_by_accuracy, evaluate_binary_segmentation, psnr_snr)
 from onet_tpu_torch.models.onet import onet_forward, predict_label
 from onet_tpu_torch.ops.normalize import minmax_per_frame
-from onet_tpu_torch.train.steps import _not_ported
 from onet_tpu_torch.train.two_stage import KEYS, to_host
 
 SNR_KEYS = ("input_psnr", "input_snr", "fg_psnr", "fg_snr")
@@ -35,12 +33,11 @@ def make_transfer_eval(*, policy: Policy = DEFAULT, forward=None):
     """(params, bn_state, x, labels) -> (metrics, (in_psnr, in_snr,
     fg_psnr, fg_snr), pred, (vt, vd)), under ``no_grad`` and the policy's
     precision; the foreground map is chosen on the device."""
-    _not_ported(forward=forward)
+    fwd = forward or onet_forward
 
     def eval_batch(params, bn_state, x, labels):
         with torch.no_grad(), policy.precision():
-            out, _ = onet_forward(params, bn_state, x, train=False,
-                                  policy=policy)
+            out, _ = fwd(params, bn_state, x, train=False, policy=policy)
             raw = predict_label(out.S)
             pred = align_labels_by_accuracy(raw, labels)
             metrics = evaluate_binary_segmentation(pred, labels)

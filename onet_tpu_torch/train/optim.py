@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from onet_tpu_torch.models.unet import tree_map
+from onet_tpu_torch.models.unet import tree_leaves, tree_map
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -27,9 +27,7 @@ def adam_init(params):
 
 
 def _device(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.device
+    return tree_leaves(tree)[0].device
 
 
 def adam_update(grads, opt_state, lr):
@@ -75,10 +73,13 @@ def cosine_warm_restarts(base_lr: float, epoch: int, *, t0: int = 300,
 
 def freeze_params(grads, frozen_fn):
     """Zero the gradient of frozen leaves: ``frozen_fn(path) -> bool``
-    with ``path`` the tuple of dict keys from the root."""
+    with ``path`` the tuple of dict keys and list indices (as strings) from
+    the root."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
         return torch.zeros_like(tree) if frozen_fn(path) else tree
 
     return walk(grads, ())

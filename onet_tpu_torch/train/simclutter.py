@@ -16,9 +16,10 @@ Beyond the reference, as in the JAX package: resume from the newest
 checkpoint, rotated autosaves, and a SIGTERM drain that checkpoints and
 returns. ``device`` (default: the card; raises without one) is the one
 argument the JAX package has no counterpart to. ``quantized`` trains with
-int8 conv arithmetic (``models/qtrain.py``). Not ported here: ``mesh``,
-``pipeline_microbatches``, ``spatial`` and backbones other than the vanilla
-conv U-Net; they raise ``NotImplementedError``.
+int8 conv arithmetic (``models/qtrain.py``, the vanilla backbone only);
+``arch`` picks the backbone family (``models/arch.py``). Not ported here:
+``mesh``, ``pipeline_microbatches`` and ``spatial`` (ROADMAP.md, Queue A
+item 4); they raise ``NotImplementedError``.
 
 Random streams come from ``core/prng.py`` (seed -> data, model, loop);
 each epoch's shuffle and augmentation draw from a generator derived from
@@ -88,7 +89,8 @@ class SimclutterConfig:
     # int8 training arithmetic (models/qtrain.py): None = exact, "fwd" =
     # int8 forward convs, "fwd+dx" = also the input-gradient convs
     quantized: str = None
-    # backbone family (models/arch.py): the port has "vanilla"
+    # backbone family (models/arch.py): "vanilla", "swin", "convnext" or
+    # "transunet", sized by the geometry fields below
     arch: str = "vanilla"
     swin_window: int = 7
     swin_embed: int = 96
@@ -145,12 +147,13 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
     params, bn_state = arch.init(g_model, config.in_channels,
                                  weight_share=config.weight_share,
                                  base=config.base_channels, device=dev)
+    fwd = None if arch.vanilla else arch.forward
     opt_state = adam_init(params)
     train_step = make_train_step(policy=policy, bias=config.bias,
-                                 quantized=config.quantized,
+                                 quantized=config.quantized, forward=fwd,
                                  loss=config.loss)
     eval_step = make_eval_step(policy=policy, align="flip", bias=config.bias,
-                               loss=config.loss)
+                               forward=fwd, loss=config.loss)
 
     if log:
         setup_logging(config.out_root, config.model_name)

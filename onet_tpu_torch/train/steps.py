@@ -7,10 +7,13 @@ the optimizer state are updated in place (the JAX step donates their
 buffers); the new BatchNorm state comes back as a new tree. Each step runs
 under its policy's precision switches, backward included.
 
-``quantized`` ("fwd" or "fwd+dx") runs the 3x3 convs in int8
-(``models/qtrain.py``) on the stacked graph. Not ported here: ``mesh`` and
-``spatial`` (data and spatial parallelism) and ``forward`` (other
-backbones). They raise ``NotImplementedError``.
+``make_grad_step`` builds such a step from any objective (the supervised
+ZY-3 step's, the baselines'). ``quantized`` ("fwd" or "fwd+dx") runs the 3x3 convs in int8
+(``models/qtrain.py``) on the stacked graph. ``forward`` swaps in another
+backbone family's forward (``models/arch.py``); the conv-specific options
+(``quantized``) apply to the vanilla conv U-Net only. Not ported here:
+``mesh`` and ``spatial`` (data and spatial parallelism, ROADMAP.md Queue A
+item 4); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,8 +34,29 @@ def _not_ported(**opts):
     given = sorted(k for k, v in opts.items() if v)
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: not in the port yet (data/spatial "
-            f"parallelism and other backbones come later)")
+            f"{', '.join(given)}: not in the port yet (data, spatial and "
+            f"pipeline parallelism: ROADMAP.md, Queue A item 4)")
+
+
+def make_grad_step(loss_fn, policy: Policy):
+    """A train step from an objective: ``loss_fn(params, state, x, *extra)
+    -> (loss, new_state)``; the step is (params, state, opt_state, x,
+    *extra, lr) -> (params, new_state, opt_state, loss), Adam applied in
+    place, under the policy's precision."""
+    def step(params, state, opt_state, x, *extra_and_lr):
+        *extra, lr = extra_and_lr
+        with policy.precision():
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                loss, new_state = loss_fn(p, state, x, *extra)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            updates, opt_state = adam_update(tree_unflatten(params, grads),
+                                             opt_state, lr)
+            with torch.no_grad():
+                tree_map(lambda t, u: t.add_(u), params, updates)
+        return params, new_state, opt_state, loss.detach()
+
+    return step
 
 
 def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
@@ -48,11 +72,14 @@ def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
     ``loss``: "jsd" (the reference objective) or "rsn" (random-sampling
     negatives). ``quantized`` (None: exact): "fwd" runs the 3x3 convs
     with int8 forward arithmetic, "fwd+dx" also the input-gradient convs
-    (``models/qtrain.py``), on the vanilla backbone only."""
-    if forward is not None and forward is not onet_forward and quantized:
+    (``models/qtrain.py``), on the vanilla backbone only. ``forward``
+    (``models/arch.py``): another family's forward, with onet_forward's
+    signature."""
+    custom = forward is not None and forward is not onet_forward
+    if custom and quantized:
         raise ValueError("quantized training applies to the vanilla conv "
                          "backbone only")
-    _not_ported(mesh=mesh, spatial=spatial, forward=forward)
+    _not_ported(mesh=mesh, spatial=spatial)
     if quantized:
         from onet_tpu_torch.models.qtrain import make_qtrain_ops
         ops = make_qtrain_ops(level=quantized)
@@ -63,8 +90,12 @@ def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
     def grads_of(params, bn_state, x):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            out, new_bn = onet_forward(p, bn_state, x, train=True, bias=bias,
-                                       policy=policy, ops=ops)
+            if custom:
+                out, new_bn = forward(p, bn_state, x, train=True, bias=bias,
+                                      policy=policy)
+            else:
+                out, new_bn = onet_forward(p, bn_state, x, train=True,
+                                           bias=bias, policy=policy, ops=ops)
             value = loss_of(out)
         grads = torch.autograd.grad(value, tree_leaves(p))
         return value.detach(), new_bn, tree_unflatten(params, grads)
@@ -100,8 +131,10 @@ def make_eval_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
                    forward=None, loss: str = "jsd"):
     """Build the eval step: (params, bn_state, x, labels) -> (metrics,
     loss, pred). ``align``: 'flip' (the accuracy flip test), 'hungarian'
-    (K=2 keep-or-swap) or 'none' (raw argmax)."""
-    _not_ported(mesh=mesh, spatial=spatial, forward=forward)
+    (K=2 keep-or-swap) or 'none' (raw argmax). ``forward``: another
+    family's forward (``models/arch.py``)."""
+    _not_ported(mesh=mesh, spatial=spatial)
+    fwd = forward or onet_forward
     if align not in ("flip", "hungarian", "none"):
         raise ValueError(f"align must be flip, hungarian or none, not "
                          f"{align!r}")
@@ -109,8 +142,8 @@ def make_eval_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
 
     def eval_step(params, bn_state, x, labels):
         with torch.no_grad(), policy.precision():
-            out, _ = onet_forward(params, bn_state, x, train=False,
-                                  bias=bias, policy=policy)
+            out, _ = fwd(params, bn_state, x, train=False, bias=bias,
+                         policy=policy)
             value = loss_of(out)
             pred = predict_label(out.S)
             if align == "flip":

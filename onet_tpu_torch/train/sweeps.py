@@ -34,7 +34,7 @@ from onet_tpu_torch.metrics.roc import dr_at_far, fg_score
 from onet_tpu_torch.metrics.segmentation import align_labels_by_accuracy
 from onet_tpu_torch.models.onet import onet_forward, predict_label
 from onet_tpu_torch.train.simclutter import SimclutterConfig, train
-from onet_tpu_torch.train.steps import _not_ported, make_eval_step
+from onet_tpu_torch.train.steps import make_eval_step
 from onet_tpu_torch.train.two_stage import verify_single_stage
 
 
@@ -70,13 +70,12 @@ def threshold_sweep_by_snr(params, bn_state, datasets_by_psnr, *,
     argmax is its threshold-0 point). Each level is forwarded in one call,
     as in the JAX package, under ``no_grad``. Returns {psnr: {"argmax":
     {"dr", "far"}, "thresh": {budget: {"far", "dr"}}}}."""
-    _not_ported(forward=forward)
+    fwd = forward or onet_forward
     report = {}
     for psnr, ds in datasets_by_psnr.items():
         x, labels = ds["imgs"], ds["labels"]
         with torch.no_grad(), policy.precision():
-            out, _ = onet_forward(params, bn_state, x, train=False,
-                                  policy=policy)
+            out, _ = fwd(params, bn_state, x, train=False, policy=policy)
             vt, vd, raw = out.Vt, out.Vd, predict_label(out.S)
             del out
             aligned = align_labels_by_accuracy(raw, labels)
@@ -117,8 +116,9 @@ def verify_checkpoint_dir(model_root: str, *, datasets_by_psnr=None,
                           device=None) -> Dict:
     """Evaluate every checkpoint (.npz and reference .pt/.pth/.pytorch) in
     a directory across the PSNR levels. Each file rebuilds its own model
-    (``core/checkpoint.load_arch_auto``); a file of a family the port does
-    not have yet raises NotImplementedError."""
+    (``core/checkpoint.load_arch_auto``: the family from its meta, the
+    vanilla width from its shapes), so a directory of mixed families
+    verifies in one call."""
     from onet_tpu_torch.core.checkpoint import load_arch_auto
 
     files = sorted(p for ext in (".npz",) + tuple(TORCH_EXTS)
@@ -131,7 +131,9 @@ def verify_checkpoint_dir(model_root: str, *, datasets_by_psnr=None,
         report[os.path.basename(f)] = {
             "epoch": epoch,
             "arch": arch.name,
-            "per_snr": test_by_snr(params, bn_state, datasets_by_psnr,
-                                   batch_sz=batch_sz, policy=policy),
+            "per_snr": test_by_snr(
+                params, bn_state, datasets_by_psnr, batch_sz=batch_sz,
+                policy=policy,
+                forward=None if arch.vanilla else arch.forward),
         }
     return report

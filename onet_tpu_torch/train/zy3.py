@@ -15,8 +15,9 @@ The reference's Train_Onet_on_zy3_20240606.py:74-177, rebuilt:
   drains the step, checkpoints and returns.
 
 ``device`` (default: the card; raises without one) is the one argument
-the JAX package has no counterpart to. Not ported: ``mesh`` and backbones
-other than the vanilla conv U-Net; they raise ``NotImplementedError``.
+the JAX package has no counterpart to; ``arch`` picks the backbone family
+(``models/arch.py``). Not ported: ``mesh`` (ROADMAP.md, Queue A item 4);
+it raises ``NotImplementedError``.
 Each epoch's shuffle and augmentation draw from a generator derived from
 (loop seed, epoch), so a restarted epoch draws what it would have drawn.
 
@@ -45,12 +46,11 @@ from onet_tpu_torch.metrics.segmentation import (
     align_labels_hungarian, evaluate_binary_segmentation)
 from onet_tpu_torch.models.arch import arch_meta, get_arch
 from onet_tpu_torch.models.onet import LOSSES, onet_forward, predict_label
-from onet_tpu_torch.models.unet import tree_leaves, tree_map, tree_unflatten
 from onet_tpu_torch.report.logs import setup_logging
-from onet_tpu_torch.train.optim import (adam_init, adam_update,
-                                        cosine_warm_restarts)
+from onet_tpu_torch.train.optim import adam_init, cosine_warm_restarts
 from onet_tpu_torch.train.preempt import PreemptGuard
-from onet_tpu_torch.train.steps import _not_ported, make_train_step
+from onet_tpu_torch.train.steps import (_not_ported, make_grad_step,
+                                        make_train_step)
 
 METRICS = ("acc", "miou", "dr", "far", "tiou")
 GROUP_NAMES = ("normal_cloud", "thin_cloud", "snow_cloud")
@@ -78,7 +78,8 @@ class Zy3Config:
     # saved path as restart_from to continue (the cut epoch is redone)
     preempt_save: bool = True
     save_epochs: tuple = (300,)
-    # backbone family (models/arch.py): the port has "vanilla"
+    # backbone family (models/arch.py): "vanilla", "swin", "convnext" or
+    # "transunet", sized by the geometry fields below
     arch: str = "vanilla"
     swin_window: int = 7
     swin_embed: int = 96
@@ -104,14 +105,14 @@ def make_zy3_eval(*, policy: Policy = DEFAULT, forward=None,
     """(params, bn_state, x, labels) -> (per-image metrics {name: [B]},
     the batch's test loss, the aligned predictions, Vt, Vd), under
     ``no_grad`` and the policy's precision. ``loss`` picks the objective
-    the test loss reports."""
-    _not_ported(forward=forward)
+    the test loss reports; ``forward`` another family's forward
+    (``models/arch.py``)."""
+    fwd = forward or onet_forward
     loss_of = LOSSES[loss]
 
     def eval_batch(params, bn_state, x, labels):
         with torch.no_grad(), policy.precision():
-            out, _ = onet_forward(params, bn_state, x, train=False,
-                                  policy=policy)
+            out, _ = fwd(params, bn_state, x, train=False, policy=policy)
             value = loss_of(out)
             metrics, aligned = _per_image(predict_label(out.S), labels)
             return metrics, value, aligned, out.Vt, out.Vd
@@ -283,8 +284,10 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
         elif log:
             logging.warning("Checkpoint %s has no optimizer state; Adam "
                             "moments restart from zero", config.restart_from)
-    train_step = make_train_step(policy=policy, loss=config.loss)
-    eval_batch = make_zy3_eval(policy=policy, loss=config.loss)
+    fwd = None if arch.vanilla else arch.forward
+    train_step = make_train_step(policy=policy, forward=fwd,
+                                 loss=config.loss)
+    eval_batch = make_zy3_eval(policy=policy, forward=fwd, loss=config.loss)
 
     if log:
         setup_logging(config.out_root, config.model_name)
@@ -370,20 +373,11 @@ def make_supervised_train_step(*, policy: Policy = DEFAULT, mesh=None):
     state are updated in place, as ``make_train_step``'s."""
     _not_ported(mesh=mesh)
 
-    def train_step(params, bn_state, opt_state, x, labels, lr):
-        with policy.precision():
-            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-            with torch.enable_grad():
-                out, new_bn = onet_forward(p, bn_state, x, train=True,
-                                           policy=policy)
-                logp = torch.log(torch.clamp(out.S, 1e-8, 1.0))
-                y = labels.to(torch.int64)[..., None]
-                ce = -torch.mean(torch.gather(logp, -1, y))
-            grads = torch.autograd.grad(ce, tree_leaves(p))
-            updates, opt_state = adam_update(
-                tree_unflatten(params, grads), opt_state, lr)
-            with torch.no_grad():
-                tree_map(lambda t, u: t.add_(u), params, updates)
-        return params, new_bn, opt_state, ce.detach()
+    def cross_entropy(params, bn_state, x, labels):
+        out, new_bn = onet_forward(params, bn_state, x, train=True,
+                                   policy=policy)
+        logp = torch.log(torch.clamp(out.S, 1e-8, 1.0))
+        y = labels.to(torch.int64)[..., None]
+        return -torch.mean(torch.gather(logp, -1, y)), new_bn
 
-    return train_step
+    return make_grad_step(cross_entropy, policy)

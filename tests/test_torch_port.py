@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "report.tables", "train.zy3", "serve.tiles",
                 "serve.artifact", "data.export", "data.tilestore",
                 "data.verify", "models.quant", "models.qtrain",
-                "ops.conv_i8", "runs.quant_validate"):
+                "ops.conv_i8", "runs.quant_validate", "models.swin",
+                "models.convnext", "models.transunet", "models.iic",
+                "models.infoseg", "train.iic", "train.infoseg",
+                "train.baseline"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -91,6 +94,10 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     from onet_tpu_torch.serve.tiles import infer_tiled
     from onet_tpu_torch.data.tilestore import load_store
     from onet_tpu_torch.data.verify import verify_dataset
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.models.iic import iic_init
+    from onet_tpu_torch.models.infoseg import infoseg_init
+    from onet_tpu_torch.train import iic as TI, infoseg as TF
 
     gen = torch.Generator().manual_seed(0)
     calls = [
@@ -143,6 +150,19 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: infer_tiled(None, None, np.zeros((8, 8, 1), np.float32)),
         lambda: load_store(str(tmp_path / "missing.ts")),
         lambda: verify_dataset(str(tmp_path / "missing.pt")),
+        lambda: get_arch("swin", swin_window=2, swin_embed=12).init(gen, 1),
+        lambda: get_arch("convnext", convnext_embed=16).init(gen, 1),
+        lambda: get_arch("transunet", transunet_embed=48,
+                         transunet_depth=1).init(gen, 1),
+        lambda: iic_init(gen, 1, base=8),
+        lambda: infoseg_init(gen, 1, base=8),
+        lambda: TI.train(TI.IICConfig(base_channels=8, input_sz=8,
+                                      frames_per_level=1, epoch_nums=1,
+                                      out_root=str(tmp_path)), log=False),
+        lambda: TF.train(TF.InfoSegConfig(base_channels=8, input_sz=8,
+                                          frames_per_level=1, epoch_nums=1,
+                                          out_root=str(tmp_path)),
+                         log=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -166,3 +186,54 @@ def test_onet_init_is_seeded_and_full_width():
     assert set(twin) == {"top", "down"}
     assert not torch.equal(twin["top"]["inc"]["conv1"]["w"],
                            twin["down"]["inc"]["conv1"]["w"])
+
+
+def test_tree_helpers_walk_lists_and_empty_branches(tmp_path):
+    """The parameter trees of the stateless families hold lists of block
+    dicts and an empty state per branch: the tree helpers, the
+    checkpoint's flattening and Adam walk them in the JAX package's order
+    (dict keys sorted, list elements by index) and round-trip them."""
+    from onet_tpu_torch.core.checkpoint import (_flatten, _unflatten,
+                                                load_checkpoint,
+                                                save_checkpoint)
+    from onet_tpu_torch.models.unet import tree_leaves, tree_map, \
+        tree_unflatten
+    from onet_tpu_torch.train.optim import adam_init, adam_update, \
+        freeze_params
+
+    t = lambda *v: torch.tensor(v, dtype=torch.float32)   # noqa: E731
+    params = {"top": {"b": [{"w": t(1.0), "g": t(2.0)}, {"w": t(3.0)}],
+                      "a": t(4.0, 5.0), "enc": [t(6.0)] * 11}}
+    state = {"top": {}}
+    leaves = tree_leaves(params)
+    assert [float(x[0]) for x in leaves] == [4, 2, 1, 3] + [6] * 11
+    back = tree_unflatten(params, [x * 2 for x in leaves])
+    assert isinstance(back["top"]["b"], list) and \
+        float(back["top"]["b"][1]["w"]) == 6.0
+    doubled = tree_map(lambda a, b: a + b, params, params)
+    assert float(doubled["top"]["enc"][10]) == 12.0
+    flat = _flatten(params, "p:")
+    assert sorted(flat)[:4] == ["p:top/a", "p:top/b/0/g", "p:top/b/0/w",
+                                "p:top/b/1/w"]
+    assert "p:top/enc/10" in flat
+    again = _unflatten(params, flat, "p:")
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(again), leaves))
+    assert _flatten(state, "s:") == {} and \
+        _unflatten(state, {}, "s:") == {"top": {}}
+    opt = adam_init(params)
+    assert isinstance(opt["mu"]["top"]["b"], list)
+    updates, opt = adam_update(tree_map(torch.ones_like, params), opt, 0.1)
+    assert all(torch.allclose(u, torch.full_like(u, -0.1))
+               for u in tree_leaves(updates))
+    path = str(tmp_path / "list.npz")
+    save_checkpoint(path, params, state, 2, opt_state=opt)
+    p2, s2, e2, o2 = load_checkpoint(path, params, state, opt_template=opt)
+    assert s2 == {"top": {}} and e2 == 2 and int(o2["count"]) == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([p2, o2["mu"], o2["nu"]]),
+        tree_leaves([params, opt["mu"], opt["nu"]])))
+    frozen = freeze_params(params, lambda path: path[:3] == ("top", "b",
+                                                             "1"))
+    assert float(frozen["top"]["b"][1]["w"]) == 0.0 and \
+        float(frozen["top"]["b"][0]["w"]) == 1.0

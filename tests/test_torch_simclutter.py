@@ -194,8 +194,8 @@ def test_sigterm_drains_and_resumes(jax_data, port_init, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()), dict(pipeline_microbatches=2), dict(spatial=True),
-    dict(config=TS.SimclutterConfig(arch="convnext")),
-    dict(config=TS.SimclutterConfig(arch="swin")),
+    dict(config=TS.SimclutterConfig(arch="convnext"), mesh=object()),
+    dict(config=TS.SimclutterConfig(arch="swin"), spatial=True),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -356,7 +356,7 @@ def test_eval_step_matches_jax(model, align):
 
 def test_steps_refuse_what_is_not_ported():
     for kw in (dict(mesh=object()), dict(spatial=True),
-               dict(forward=lambda *a, **k: None)):
+               dict(spatial=True, forward=lambda *a, **k: None)):
         with pytest.raises(NotImplementedError):
             make_train_step(**kw)
     with pytest.raises(NotImplementedError):

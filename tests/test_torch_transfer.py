@@ -235,8 +235,13 @@ def test_naurain_matches_jax(nets, nau, tmp_path):
                    {k: want[k] for k in TN.SNR_KEYS}, tol=1e-3)
     x, lab = np.asarray(jds["imgs"][:5]), np.asarray(jds["labels"][:5])
     assert _flipped(jp, x, lab, True) == _flipped(tp, x, lab, False)
-    with pytest.raises(NotImplementedError):
-        TN.make_transfer_eval(forward=TO.onet_forward)
+    # forward= takes a backbone family's forward; the vanilla one given
+    # explicitly is the default
+    xt, lt = torch.tensor(x), torch.tensor(lab)
+    a = TN.make_transfer_eval(forward=TO.onet_forward)(*tp, xt, lt)
+    b = TN.make_transfer_eval()(*tp, xt, lt)
+    assert all(torch.equal(a[0][k], b[0][k]) for k in b[0])
+    assert torch.equal(a[2], b[2])
 
 
 def test_verify_two_stage_matches_jax(nets, levels, tmp_path):
@@ -313,11 +318,13 @@ def test_verify_checkpoint_dir_matches_jax(nets, levels, tmp_path):
             (want[f]["epoch"], want[f]["arch"])
         for lvl in want[f]["per_snr"]:
             _close_metrics(got[f]["per_snr"][lvl], want[f]["per_snr"][lvl])
+    # a file whose meta names another family than its tree holds is
+    # refused by the key its family's tree misses
     save_checkpoint(str(tmp_path / "c.npz"), *tp1, 0,
                     meta={"arch": "swin", "in_channels": 1,
-                          "weight_share": True, "swin_window": 7,
-                          "swin_embed": 96})
-    with pytest.raises(NotImplementedError):
+                          "weight_share": True, "swin_window": 2,
+                          "swin_embed": 12})
+    with pytest.raises(KeyError, match="checkpoint has no 'p:top/"):
         TS.verify_checkpoint_dir(str(tmp_path), datasets_by_psnr=tds,
                                  batch_sz=5, device="cpu")
 

@@ -213,9 +213,10 @@ def test_loss_and_aug_options_train(jax_data, port_init, tmp_path, kw):
 @pytest.mark.parametrize("call", [
     lambda: TT.train(TT.Zy3Config(), None, None, mesh=object(), log=False,
                      device="cpu"),
-    lambda: TT.train(TT.Zy3Config(arch="swin"), None, None, log=False,
-                     device="cpu"),
-    lambda: TT.make_zy3_eval(forward=object()),
+    lambda: TT.train(TT.Zy3Config(arch="swin"), None, None, mesh=object(),
+                     log=False, device="cpu"),
+    lambda: TT.train(TT.Zy3Config(arch="convnext"), None, None,
+                     mesh=object(), log=False, device="cpu"),
     lambda: TT.make_supervised_train_step(mesh=object()),
 ])
 def test_unported_options_raise(call):
