@@ -131,6 +131,20 @@ Phases, each fatal on failure:
      and InfoSeg, one epoch each of their train() at their defaults;
      every family's card float32 forward on 2 frames against its CPU
      float32 forward (atol 2e-5, rtol 1e-4, fatal).
+ 12. parallel training over torch.distributed (``parallel_workload``): (a)
+     an NCCL world of one rank in this process, the data-parallel train
+     and eval steps on mesh (1, 1) at phase 4's shape (bf16, batch 8,
+     512^2, pair-packed and stacked) bit-equal to the plain steps, the
+     pair-packed step's launches asserted equal to STEP_LAUNCHES a step and
+     the eval's to EVAL_LAUNCHES, its step time beside phase 4's; (b) a
+     gloo world of 4 spawned processes sharing the card (NCCL refuses two
+     ranks on one device): data parallel (2, 1), spatial (1, 2) and
+     (1, 2, 2), channel (1, 2) and pipeline (1, 2) with M = 2, float32 at
+     512^2, base 64, 2 frames a data shard, each against the plain step on
+     the global batch on the card and every rank's trees bit-equal; times
+     there are not multi-GPU numbers; (c) with two or more cards, (b)'s
+     cases over NCCL on min(4, count) cards and the data-parallel frames/s
+     summed over ranks.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -141,6 +155,7 @@ import contextlib
 import io
 import json
 import os
+import queue
 import re
 import shutil
 import subprocess
@@ -3811,6 +3826,391 @@ def families_workload(dev, vanilla_ckpt: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the parallel training paths over torch.distributed
+# ---------------------------------------------------------------------------
+
+PHASE12_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke_phase12")
+# (mode, mesh shape, axis names, microbatches) of the many-rank worlds:
+# float32 at 512^2, base 64, 2 frames a data shard. "dp_wp" is the
+# data-parallel step on the pair-packed kernels (their BatchNorm sums
+# all-reduced over "data"), held to the plain pair-packed step, with
+# STEP_LAUNCHES asserted on every rank and step
+PAR_CASES = (("dp", (2, 1), ("data", "space"), 1),
+             ("dp_wp", (2, 1), ("data", "space"), 1),
+             ("spatial", (1, 2), ("data", "space"), 1),
+             ("spatial", (1, 2, 2), ("data", "space", "spacew"), 1),
+             ("tp", (1, 2), ("data", "model"), 1),
+             ("pp", (1, 2), ("data", "stage"), 2))
+PAR_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _digest(*trees) -> str:
+    import hashlib
+    from onet_tpu_torch.models.unet import tree_leaves
+    h = hashlib.sha256()
+    for tree in trees:
+        for t in tree_leaves(tree):
+            h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _flat(tree) -> torch.Tensor:
+    from onet_tpu_torch.models.unet import tree_leaves
+    return torch.cat([t.detach().reshape(-1).double()
+                      for t in tree_leaves(tree)])
+
+
+def one_rank_world(TC, dev, trained) -> dict:
+    """Phase 12 (a): an NCCL world of one rank in this process. The data-
+    parallel train and eval steps on mesh (1, 1), bf16 batch 8 at 512^2,
+    pair-packed and stacked, from phase 4's start: loss and parameters
+    bit-equal to the plain step's, the pair-packed step's launches equal
+    STEP_LAUNCHES each step and the eval's EVAL_LAUNCHES."""
+    import torch.distributed as dist
+    from onet_tpu_torch.core.mesh import make_mesh
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.models.unet import tree_leaves
+    from onet_tpu_torch.parallel import multihost
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    rank_dev = multihost.initialize(f"localhost:{_free_port()}", 1, 0,
+                                    device=dev)
+    res = {"world": 1, "backend": dist.get_backend(),
+           "cards": torch.cuda.device_count()}
+    log(f"[par] (a) world size 1, backend {res['backend']}, "
+        f"{res['cards']} card(s), device {rank_dev}")
+    try:
+        mesh = make_mesh((1, 1), ("data", "space"))
+        gen = torch.Generator().manual_seed(SEED + 20)
+        params0, state0 = O.onet_init(gen, 1, base=64, device=dev)
+        batch = 8
+        xs = [torch.from_numpy(frames(batch, SEED + 30 + i)).to(dev)
+              for i in range(TRAIN_STEPS)]
+        for wp in (True, False):
+            key = "wp" if wp else "stacked"
+            with pair_pack(O, wp):
+                runs = {}
+                for tag, kw in (("plain", {}), ("mesh", dict(mesh=mesh))):
+                    step = make_train_step(policy=BF16_COMPUTE, **kw)
+                    p, st, o = (_clone(params0), _clone(state0),
+                                adam_init(params0))
+                    losses, per_step = [], []
+                    for x in xs:
+                        reset_counts(TC)
+                        p, st, o, loss = step(p, st, o, x, LR)
+                        losses.append(loss.item())
+                        c = launch_counts(TC)
+                        per_step.append(
+                            {"conv3x3_wp+stats": c["conv3x3_wp+stats"],
+                             "conv3x3_wp+dx": c["conv3x3_wp"]
+                             - c["conv3x3_wp+stats"],
+                             "conv3x3_wp2+stats": c["conv3x3_wp2+stats"],
+                             "conv3x3_wp_dw": c["conv3x3_wp_dw"]})
+                    runs[tag] = (step, p, st, o, losses, per_step)
+                _, p1, s1, o1, l1, _ = runs["plain"]
+                step, p2, s2, o2, l2, launches = runs["mesh"]
+                want = (STEP_LAUNCHES if wp else
+                        {k: 0 for k in STEP_LAUNCHES})
+                if any(c != want for c in launches):
+                    raise AssertionError(
+                        f"(a) {key}: launches a step {launches}, expected "
+                        f"{want}")
+                same = (l1 == l2 and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves([p1, s1, o1]), tree_leaves([p2, s2, o2]))))
+                log(f"[par] (a) {key} bf16 batch {batch}: losses mesh {l2} "
+                    f"plain {l1}; launches a step {launches[0]}; "
+                    f"bit-equal {same}")
+                if not same:
+                    raise AssertionError(f"(a) {key}: the mesh (1, 1) step "
+                                         "differs from the plain step")
+                ms = cuda_ms(lambda: step(p2, s2, o2, xs[0], LR))
+                res[f"{key}_step_ms"] = ms
+                res[f"{key}_launches"] = launches[0]
+                labels = (xs[0][..., 0] > 0.6).to(torch.int32)
+                reset_counts(TC)
+                m2, v2, pr2 = make_eval_step(policy=BF16_COMPUTE, mesh=mesh)(
+                    p2, s2, xs[0], labels)
+                c = launch_counts(TC)
+                ev = {"conv3x3_wp+stats": c["conv3x3_wp+stats"],
+                      "conv3x3_wp2+stats": c["conv3x3_wp2+stats"]}
+                m1, v1, pr1 = make_eval_step(policy=BF16_COMPUTE)(
+                    p2, s2, xs[0], labels)
+                want_ev = (EVAL_LAUNCHES if wp else
+                           {k: 0 for k in EVAL_LAUNCHES})
+                if ev != want_ev or not torch.equal(pr1, pr2) or \
+                        not torch.equal(v1, v2):
+                    raise AssertionError(f"(a) {key} eval: launches {ev} "
+                                         f"(expected {want_ev}) or output "
+                                         "differs from the plain eval")
+                res[f"{key}_eval_launches"] = ev
+                phase4 = trained[f"train_b{batch}_{key}_step_ms"]
+                log(f"[par] (a) {key}: mesh (1, 1) step {ms:.2f} ms, phase "
+                    f"4's plain step {phase4:.2f} ms; eval launches {ev}")
+                del runs, p1, s1, o1, p2, s2, o2
+                torch.cuda.empty_cache()
+        res["preempt_agreed"] = _preempt_over_nccl(mesh, dev)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def _preempt_over_nccl(mesh, dev) -> list:
+    """The drivers' SIGTERM agreement over NCCL: a SIGTERM to this process
+    is read one poll late (the MAX all-reduce runs without the host
+    waiting) and then held."""
+    import signal
+    from onet_tpu_torch.train.preempt import PreemptGuard
+
+    guard = PreemptGuard().install()
+    try:
+        seen = [guard.triggered_on_any(mesh.world, dev)]
+        os.kill(os.getpid(), signal.SIGTERM)
+        seen += [guard.triggered_on_any(mesh.world, dev),
+                 guard.triggered_on_any(mesh.world, dev),
+                 guard.settled_on_any(mesh.world)]
+    finally:
+        guard.restore()
+    log(f"[par] (a) SIGTERM agreement over NCCL, polls then settled: {seen}")
+    if seen != [False, False, True, True]:
+        raise AssertionError(f"(a) SIGTERM agreement {seen}, expected "
+                             "[False, False, True, True]")
+    return seen
+
+
+def _par_step(mode, mesh, microbatches):
+    from onet_tpu_torch.core.policy import DEFAULT
+    from onet_tpu_torch.train.steps import make_train_step
+    if mode in ("dp", "dp_wp"):
+        return make_train_step(mesh=mesh, policy=DEFAULT)
+    if mode == "spatial":
+        return make_train_step(mesh=mesh, spatial=True, policy=DEFAULT)
+    if mode == "tp":
+        from onet_tpu_torch.parallel.tensor import make_tp_train_step
+        return make_tp_train_step(mesh, policy=DEFAULT)
+    from onet_tpu_torch.parallel.pipeline import make_pp_train_step
+    return make_pp_train_step(mesh, microbatches=microbatches,
+                              policy=DEFAULT)
+
+
+def _par_case(case, dev, hw: int = H) -> dict:
+    """One case on this rank; rank 0 also runs the plain step on the
+    global batch and compares. The pair-packed case runs both steps on
+    the pair-packed path."""
+    from onet_tpu_torch.core.mesh import make_mesh
+    from onet_tpu_torch.models import onet as O
+
+    mode, shape, names, mb = case
+    n = int(np.prod(shape))
+    mesh = make_mesh(shape, names, ranks=list(range(n)))
+    if mesh is None:
+        return None
+    with pair_pack(O, mode == "dp_wp"):
+        return _par_run(case, mesh, dev, hw)
+
+
+def _par_run(case, mesh, dev, hw: int) -> dict:
+    import torch.distributed as dist
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.ops import conv_wp as TC
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    mode, shape, names, mb = case
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(SEED + 20)
+    params0, state0 = O.onet_init(gen, 1, base=64, device=dev)
+    batch = 2 * mesh.shape.get("data", 1)
+    x = torch.from_numpy(frames(batch, SEED + 40)[:, :hw, :hw]).to(dev)
+    step = _par_step(mode, mesh, mb)
+    v, bn, g = step.loss_and_grads(_clone(params0), _clone(state0), x)
+    p, s, o = _clone(params0), _clone(state0), adam_init(params0)
+    times, launches = [], []
+    for i in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        reset_counts(TC)
+        t0 = time.perf_counter()
+        p, s, o, loss = step(p, s, o, x, LR)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        c = launch_counts(TC)
+        launches.append({"conv3x3_wp+stats": c["conv3x3_wp+stats"],
+                         "conv3x3_wp+dx": c["conv3x3_wp"]
+                         - c["conv3x3_wp+stats"],
+                         "conv3x3_wp2+stats": c["conv3x3_wp2+stats"],
+                         "conv3x3_wp_dw": c["conv3x3_wp_dw"]})
+        if i == 0:
+            first = _flat(p)
+    want = (STEP_LAUNCHES if mode == "dp_wp"
+            else {k: 0 for k in STEP_LAUNCHES})
+    if any(c != want for c in launches):
+        raise AssertionError(f"phase 12 {mode} {shape} rank {mesh.rank}: "
+                             f"launches a step {launches}, expected {want}")
+    out = {"case": f"{mode} {shape}", "digest": _digest(p, s, o),
+           "step_ms": float(np.median(times)), "batch": batch,
+           "launches": launches[0],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the ranks give back their cached blocks before rank 0 runs the
+    # plain step on the global batch (the processes share one card)
+    torch.cuda.empty_cache()
+    dist.barrier(group=mesh.world.group)
+    if mesh.rank == 0:
+        plain = make_train_step(microbatches=mb)
+        v0, bn0, g0 = plain.loss_and_grads(_clone(params0), _clone(state0),
+                                           x)
+        a, b = _flat(g0), _flat(g)
+        out.update(
+            loss=float(v), plain_loss=float(v0),
+            loss_rel=abs(float(v) - float(v0)) / abs(float(v0)),
+            grad_cos=float(a @ b / (a.norm() * b.norm())),
+            grad_rel=float((a - b).norm() / a.norm()),
+            bn_max_abs=float((_flat(bn0) - _flat(bn)).abs().max()))
+        p1, _, _, _ = plain(_clone(params0), _clone(state0),
+                            adam_init(params0), x, LR)
+        u0, u1 = _flat(p1) - _flat(params0), first - _flat(params0)
+        out["update_same_sign"] = float(
+            (torch.sign(u0) == torch.sign(u1)).double().mean())
+        # an update is at most lr, plus the rounding of the stored
+        # float32 parameter (half an ulp, 2^-24 |p|, each way)
+        out["update_excess"] = float((u1.abs() - LR - _flat(params0).abs()
+                                      * 2.0 ** -23).max())
+        del p1, u0, u1
+    dist.barrier(group=mesh.world.group)
+    del p, s, o, g, bn, params0, state0, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12_rank(rank, world, url, backend, device, q, hw=H) -> None:
+    """One rank of a phase-12 world: every case of PAR_CASES that fits
+    the world, then its results on ``q``."""
+    # several processes share the card: grow segments instead of caching
+    # fixed blocks, so one process's freed memory is another's
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from onet_tpu_torch.parallel import multihost
+
+    dev = multihost.initialize(url, world, rank, device=device,
+                               backend=backend)
+    out = [_par_case(c, dev, hw) for c in PAR_CASES
+           if int(np.prod(c[1])) <= world]
+    q.put((rank, out))
+    dist.destroy_process_group()
+
+
+def many_rank_world(world: int, backend: str, device, hw: int = H) -> list:
+    """Phase 12 (b)/(c): a world of ``world`` spawned processes; returns
+    rank 0's case results after checking every rank's. ``hw``: the
+    frames' side (512; smaller to rehearse on the CPU)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    os.makedirs(PHASE12_DIR, exist_ok=True)
+    url = "file://" + os.path.join(PHASE12_DIR, f"rdv_{backend}_{world}")
+    if os.path.exists(url[7:]):
+        os.remove(url[7:])
+    procs = [ctx.Process(target=phase12_rank,
+                         args=(r, world, url, backend, device, q, hw))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    got = {}
+    deadline = time.perf_counter() + 600
+    try:
+        while len(got) < world:
+            try:
+                rank, out = q.get(timeout=5)
+                got[rank] = out
+            except queue.Empty:
+                dead = [pr.exitcode for pr in procs
+                        if pr.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"phase 12 world {world} {backend}: ranks exited "
+                        f"{[pr.exitcode for pr in procs]} before answering")
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.kill()
+    bad = [pr.exitcode for pr in procs if pr.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phase 12 world {world} {backend}: rank exit "
+                             f"codes {[pr.exitcode for pr in procs]}")
+    rows = []
+    for i, r0 in enumerate(got[0]):
+        n = int(np.prod(PAR_CASES[i][1]))
+        digests = {got[r][i]["digest"] for r in range(n)}
+        line = (f"[par] world {world} {backend}, {torch.cuda.device_count()}"
+                f" card(s): {r0['case']} batch {r0['batch']}: loss "
+                f"{r0['loss']:.7f} (plain {r0['plain_loss']:.7f}, relative "
+                f"{r0['loss_rel']:.2e}); gradient cosine {r0['grad_cos']:.8f}"
+                f", relative L2 {r0['grad_rel']:.2e}; BN state max abs "
+                f"{r0['bn_max_abs']:.2e}; first update's signs as the "
+                f"plain step's {r0['update_same_sign']:.6f}, largest "
+                f"beyond lr {r0['update_excess']:.2e}; ranks bit-equal "
+                f"{len(digests) == 1}; pair-packed launches a step "
+                f"{r0['launches']}; step {r0['step_ms']:.1f} ms "
+                f"(rank 0, median of {PAR_STEPS}), peak "
+                f"{max(got[r][i]['peak_gib'] for r in range(n)):.2f} GiB a "
+                f"rank")
+        log(line)
+        if len(digests) != 1 or not (
+                r0["loss_rel"] <= 1e-5 and r0["grad_cos"] > 0.9999
+                and r0["grad_rel"] < 1e-3 and r0["bn_max_abs"] <= 1e-4
+                and r0["update_same_sign"] > 0.99
+                and r0["update_excess"] <= LR * 1e-3):
+            raise AssertionError(f"phase 12: {line}")
+        rows.append(dict(r0, world=world, backend=backend,
+                         ranks_bit_equal=True,
+                         step_ms_by_rank=[got[r][i]["step_ms"]
+                                          for r in range(n)]))
+    return rows
+
+
+def parallel_workload(TC, dev, trained) -> dict:
+    """Phase 12: (a) the one-rank NCCL world in this process; (b) gloo
+    worlds of 2 and 4 processes sharing the card (times there are not
+    multi-GPU numbers: the processes share one card and the collectives go
+    through the host); (c) where the host has two or more cards, NCCL over
+    min(4, count) of them."""
+    res = {"a": one_rank_world(TC, dev, trained)}
+    torch.cuda.empty_cache()
+    log(f"[par] this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB before the "
+        "many-rank worlds start")
+    res["b"] = many_rank_world(4, "gloo", "cuda:0")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(4, count)
+        res["c"] = many_rank_world(n, "nccl", None)
+        dp = next(r for r in res["c"] if r["case"].startswith("dp"))
+        ranks = len(dp["step_ms_by_rank"])
+        res["c_dp_frames_per_s"] = sum(
+            dp["batch"] / ranks / ms * 1e3 for ms in dp["step_ms_by_rank"])
+        log(f"[par] (c) NCCL on {n} cards: DP step frames/s summed over "
+            f"ranks {res['c_dp_frames_per_s']:.1f}")
+    else:
+        log(f"[par] (c) skipped: {count} card on this host (NCCL takes one "
+            "rank per card)")
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -3956,6 +4356,12 @@ def main() -> int:
         f"{fam[k]['zy3_step']['idle_share']:.3f}), 512^2 forward "
         f"{fam[k]['serve_512']['ms']:.2f} ms" for k in FAMILIES))
     log(f"[phase11] phase took {fam['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par = parallel_workload(TC, dev, trained)
+    par["phase_s"] = time.perf_counter() - t0
+    log("[parallel] " + json.dumps(par))
+    log(f"[phase12] phase took {par['phase_s']:.1f} s")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -4049,6 +4455,12 @@ def main() -> int:
                        "launches": v["launches"]}
                    for k, v in q8["sites"].items()
                    if k.endswith(".up") == (name == "convT2x2_i8")}))
+    # phase 12's launches a step of the data-parallel pair-packed step on
+    # the one-rank NCCL mesh (asserted equal to phase 4's STEP_LAUNCHES)
+    for row in rows:
+        if row["name"] in par["a"]["wp_launches"]:
+            row["parallel_launches_per_step"] = \
+                par["a"]["wp_launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

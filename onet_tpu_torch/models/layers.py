@@ -14,10 +14,20 @@ statistics replay the reference's sequential EMA in branch order, outside
 the graph. Pool and transposed conv differentiate through PyTorch's own
 backward: ``max_pool2d`` routes a window's gradient to its first maximum in
 scan order, the first-match rule of the JAX package's select_and_scatter.
+
+Under a mesh (``bn_axis``), train-mode statistics are full-batch: the
+per-branch sums S1 = sum x, S2 = sum x^2 are all-reduced over the mesh
+axis before mean and variance are formed (the sums
+``onet_tpu/parallel/halo.py`` spells out; JAX's GSPMD step computes the
+same statistics), the EMA's unbiased variance uses the global count, and
+the backward all-reduces its two sums, so dx is the full-batch BatchNorm
+gradient and not a per-rank one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -146,6 +156,42 @@ def relu(x):
 # BatchNorm
 # ---------------------------------------------------------------------------
 
+# The mesh axis (core/mesh.py::Axis) train-mode statistics reduce over;
+# None: this process's batch alone.
+_BN_AXIS = contextvars.ContextVar("bn_axis", default=None)
+
+
+@contextlib.contextmanager
+def bn_axis(axis):
+    """Train-mode BatchNorm inside the block (here and in models/wp.py)
+    takes its statistics over the whole of ``axis``: full-batch statistics
+    under data and spatial sharding. An axis of one rank changes
+    nothing."""
+    token = _BN_AXIS.set(axis if axis is not None and axis.size > 1
+                         else None)
+    try:
+        yield
+    finally:
+        _BN_AXIS.reset(token)
+
+
+def current_bn_axis():
+    return _BN_AXIS.get()
+
+
+def all_reduce_sums(axis, *sums):
+    """All-reduce SUM several tensors over ``axis`` in one collective;
+    returns them in order."""
+    from onet_tpu_torch.parallel.collectives import all_reduce_
+    flat = torch.cat([t.reshape(-1) for t in sums])
+    all_reduce_(flat, axis)
+    out, off = [], 0
+    for t in sums:
+        out.append(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return out
+
+
 def _group_view(groups, interleaved):
     """(reshape, reduce dims, [G, C] broadcaster) of a branch-grouped batch.
     Block layout: [N, ...] -> [G, N/G, ...] (branch b = slab b);
@@ -167,17 +213,26 @@ class _BnTrain(torch.autograd.Function):
     compute-dtype x and the [G, C] statistics and recomputes x_hat."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps, interleaved):
+    def forward(ctx, x, scale, bias, groups, eps, interleaved, axis=None):
         n, h, w, c = x.shape
         view, red, bcast = _group_view(groups, interleaved)
         xf = view(x, n, h, w, c, groups).float()
-        mean = xf.mean(dim=red)
-        var = xf.square().mean(dim=red) - mean.square()
+        cnt = (n // groups) * h * w
+        if axis is None:
+            mean = xf.mean(dim=red)
+            var = xf.square().mean(dim=red) - mean.square()
+        else:
+            cnt *= axis.size
+            s1, s2 = all_reduce_sums(axis, xf.sum(dim=red),
+                                     xf.square().sum(dim=red))
+            mean = s1 / cnt
+            var = s2 / cnt - mean.square()
         inv = torch.rsqrt(var + eps)
         y = (xf - bcast(mean)) * bcast(inv * scale.float())
         y = (y + bias.float()).reshape(n, h, w, c).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.groups, ctx.interleaved = groups, interleaved
+        ctx.axis, ctx.cnt = axis, cnt
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -185,19 +240,23 @@ class _BnTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
         n, h, w, c = x.shape
-        g = ctx.groups
-        cnt = (n // g) * h * w
+        g, cnt = ctx.groups, ctx.cnt
         view, red, bcast = _group_view(g, ctx.interleaved)
         xg = view(x, n, h, w, c, g).float()
         dyg = view(dy, n, h, w, c, g).float()
         xhat = (xg - bcast(mean)) * bcast(inv)
         sum_dy = dyg.sum(dim=red)                                  # [G, C]
         sum_dy_xhat = (dyg * xhat).sum(dim=red)
+        # scale and bias get this rank's sums (the step sums parameter
+        # gradients over the mesh); dx needs the full batch's
+        g_dy, g_dyx = sum_dy, sum_dy_xhat
+        if ctx.axis is not None:
+            g_dy, g_dyx = all_reduce_sums(ctx.axis, sum_dy, sum_dy_xhat)
         dx = (bcast(inv * scale.float())
-              * (dyg - bcast(sum_dy / cnt) - xhat * bcast(sum_dy_xhat / cnt)))
+              * (dyg - bcast(g_dy / cnt) - xhat * bcast(g_dyx / cnt)))
         dx = dx.reshape(n, h, w, c).to(x.dtype)
         return (dx, sum_dy_xhat.sum(0).to(scale.dtype),
-                sum_dy.sum(0).to(scale.dtype), None, None, None)
+                sum_dy.sum(0).to(scale.dtype), None, None, None, None)
 
 
 class _BnTrainCh(torch.autograd.Function):
@@ -206,17 +265,26 @@ class _BnTrainCh(torch.autograd.Function):
     tiled. Returns (y, mean, var) with mean/var [G, C] like _BnTrain."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps):
-        c = x.shape[-1] // groups
+    def forward(ctx, x, scale, bias, groups, eps, axis=None):
+        n, h, w, c2 = x.shape
+        c = c2 // groups
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))                              # [G*C]
-        var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+        cnt = n * h * w
+        if axis is None:
+            mean = xf.mean(dim=(0, 1, 2))                          # [G*C]
+            var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+        else:
+            cnt *= axis.size
+            s1, s2 = all_reduce_sums(axis, xf.sum(dim=(0, 1, 2)),
+                                     xf.square().sum(dim=(0, 1, 2)))
+            mean = s1 / cnt
+            var = s2 / cnt - mean.square()
         inv = torch.rsqrt(var + eps)
         scale2 = scale.float().repeat(groups)
         bias2 = bias.float().repeat(groups)
         y = ((xf - mean) * (inv * scale2) + bias2).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.groups = groups
+        ctx.groups, ctx.axis, ctx.cnt = groups, axis, cnt
         mean_g, var_g = mean.reshape(groups, c), var.reshape(groups, c)
         ctx.mark_non_differentiable(mean_g, var_g)
         return y, mean_g, var_g
@@ -224,19 +292,21 @@ class _BnTrainCh(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
-        n, h, w, c2 = x.shape
-        g = ctx.groups
-        cnt = n * h * w
+        c2 = x.shape[-1]
+        g, cnt = ctx.groups, ctx.cnt
         xf, dyf = x.float(), dy.float()
         xhat = (xf - mean) * inv
         sum_dy = dyf.sum(dim=(0, 1, 2))                            # [G*C]
         sum_dy_xhat = (dyf * xhat).sum(dim=(0, 1, 2))
+        g_dy, g_dyx = sum_dy, sum_dy_xhat
+        if ctx.axis is not None:
+            g_dy, g_dyx = all_reduce_sums(ctx.axis, sum_dy, sum_dy_xhat)
         scale2 = scale.float().repeat(g)
         dx = ((inv * scale2)
-              * (dyf - sum_dy / cnt - xhat * (sum_dy_xhat / cnt))).to(x.dtype)
+              * (dyf - g_dy / cnt - xhat * (g_dyx / cnt))).to(x.dtype)
         dscale = sum_dy_xhat.reshape(g, c2 // g).sum(0).to(scale.dtype)
         dbias = sum_dy.reshape(g, c2 // g).sum(0).to(scale.dtype)
-        return dx, dscale, dbias, None, None
+        return dx, dscale, dbias, None, None, None
 
 
 def ema_update(state, mean, var, cnt: int, momentum: float = BN_MOMENTUM):
@@ -265,13 +335,16 @@ def batch_norm(x, params, state, *, train: bool, groups: int = 1,
     variance, the EMA the unbiased one (torch semantics)."""
     if train:
         n, h, w, _ = x.shape
-        cnt = (n // (1 if stacked else groups)) * h * w
+        axis = _BN_AXIS.get()
+        cnt = (n // (1 if stacked else groups)) * h * w * (
+            1 if axis is None else axis.size)
         if stacked:
             y, mean, var = _BnTrainCh.apply(x, params["scale"],
-                                            params["bias"], groups, eps)
+                                            params["bias"], groups, eps,
+                                            axis)
         else:
             y, mean, var = _BnTrain.apply(x, params["scale"], params["bias"],
-                                          groups, eps, interleaved)
+                                          groups, eps, interleaved, axis)
         return y, ema_update(state, mean, var, cnt, momentum)
     sf, bf = params["scale"].float(), params["bias"].float()
     if stacked:

@@ -267,11 +267,29 @@ def compute_loss(out: OnetOutput) -> torch.Tensor:
     return -(jsd(ct, st, sd) + jsd(cd, sd, st)) / 2.0
 
 
-def compute_loss_rsn(out: OnetOutput) -> torch.Tensor:
+def roll_batch(t: torch.Tensor, batch_axis=None) -> torch.Tensor:
+    """``roll(t, 1)`` along the batch: sample i takes sample i-1's map,
+    the first the last's. Under a mesh whose ``batch_axis``
+    (``core/mesh.py::Axis``) splits the global batch into contiguous
+    shards, this rank's first sample takes the previous rank's last (one
+    ``ppermute`` of one sample, cyclic over the axis)."""
+    if batch_axis is None or batch_axis.size == 1:
+        return torch.roll(t, 1, dims=0)
+    from onet_tpu_torch.parallel.collectives import ppermute
+    n = batch_axis.size
+    prev_last = ppermute(t[-1:], batch_axis,
+                         [(i, (i + 1) % n) for i in range(n)])
+    return torch.cat([prev_last, t[:-1]], dim=0)
+
+
+def compute_loss_rsn(out: OnetOutput, batch_axis=None) -> torch.Tensor:
     """Random-sampling-negative ablation: each branch's negative score map
     comes from another image of the batch (a roll by one) instead of the
-    complement branch's. Needs batch >= 2."""
-    if out.S.shape[0] < 2:
+    complement branch's. Needs a global batch >= 2. ``batch_axis``: the
+    mesh axis that shards the batch (``roll_batch``); the result is then
+    this rank's mean."""
+    shards = 1 if batch_axis is None else batch_axis.size
+    if out.S.shape[0] * shards < 2:
         raise ValueError("RSN loss needs batch >= 2 (in-batch negatives)")
     if out.Lsum is not None:
         lt, ld = out.Lsum[..., 0], out.Lsum[..., 1]
@@ -279,8 +297,8 @@ def compute_loss_rsn(out: OnetOutput) -> torch.Tensor:
         lt = torch.sum(out.Lt.float(), dim=-1)
         ld = torch.sum(out.Ld.float(), dim=-1)
     st, sd = out.S[..., 0], out.S[..., 1]
-    return -(jsd(lt, st, torch.roll(st, 1, dims=0))
-             + jsd(ld, sd, torch.roll(sd, 1, dims=0))) / 2.0
+    return -(jsd(lt, st, roll_batch(st, batch_axis))
+             + jsd(ld, sd, roll_batch(sd, batch_axis))) / 2.0
 
 
 LOSSES = {"jsd": compute_loss, "rsn": compute_loss_rsn}

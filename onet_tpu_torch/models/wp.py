@@ -39,15 +39,21 @@ from onet_tpu_torch.ops.conv_wp import (
 # BatchNorm on packed tensors with kernel-precomputed statistics
 # ---------------------------------------------------------------------------
 
-def _fold_stats(s1, s2, cnt):
+def _fold_stats(s1, s2, cnt, axis=None):
     """Per-sample lane sums [N, 128] -> per-branch (mean, var) [2, 64]
     (branch b = batch half b; lanes (parity, channel) fold over parity);
-    var = E[x^2] - mean^2 in f32, as the JAX package computes it."""
+    var = E[x^2] - mean^2 in f32, as the JAX package computes it. Under a
+    mesh ``axis`` the folded sums are all-reduced over it first and
+    ``cnt`` is the global count."""
     b = s1.shape[0] // 2
     s1f = s1[:, :64] + s1[:, 64:]
     s2f = s2[:, :64] + s2[:, 64:]
-    mean = torch.stack([s1f[:b].sum(0), s1f[b:].sum(0)]) / cnt
-    ex2 = torch.stack([s2f[:b].sum(0), s2f[b:].sum(0)]) / cnt
+    t1 = torch.stack([s1f[:b].sum(0), s1f[b:].sum(0)])
+    t2 = torch.stack([s2f[:b].sum(0), s2f[b:].sum(0)])
+    if axis is not None:
+        t1, t2 = L.all_reduce_sums(axis, t1, t2)
+    mean = t1 / cnt
+    ex2 = t2 / cnt
     return mean, ex2 - mean.square()
 
 
@@ -60,15 +66,18 @@ class _BnApplyWp(torch.autograd.Function):
     """Train-mode BN apply on a packed tensor with precomputed per-branch
     statistics (mean, inv = rsqrt(var + eps), each [2, 64]). The backward
     is the full BatchNorm backward, the statistics' dependence on y
-    included, as in layers._BnTrainCh; mean and inv get no gradient."""
+    included, as in layers._BnTrainCh; mean and inv get no gradient.
+    Under a mesh ``axis`` the backward's two sums are all-reduced over it
+    (full-batch statistics have a full-batch gradient)."""
 
     @staticmethod
-    def forward(ctx, y, scale, bias, mean, inv):
+    def forward(ctx, y, scale, bias, mean, inv, axis=None):
         b = y.shape[0] // 2
         sf = scale.float()
         a2 = (inv * sf).repeat(1, 2)                               # [2, 128]
         c2 = (bias.float() - mean * inv * sf).repeat(1, 2)
         ctx.save_for_backward(y, scale, mean, inv)
+        ctx.axis = axis
         return (y.float() * _per_sample(a2, b)
                 + _per_sample(c2, b)).to(y.dtype)
 
@@ -78,6 +87,9 @@ class _BnApplyWp(torch.autograd.Function):
         n, h, wp, _ = y.shape
         b = n // 2
         cnt = b * h * wp * 2                  # per-branch count per channel
+        axis = ctx.axis
+        if axis is not None:
+            cnt *= axis.size
         yf, dyf = y.float(), dy.float()
         xhat = ((yf - _per_sample(mean.repeat(1, 2), b))
                 * _per_sample(inv.repeat(1, 2), b))
@@ -87,13 +99,16 @@ class _BnApplyWp(torch.autograd.Function):
         f_dyx = t_dyx[:, :64] + t_dyx[:, 64:]
         sum_dy = torch.stack([f_dy[:b].sum(0), f_dy[b:].sum(0)])   # [2, 64]
         sum_dyx = torch.stack([f_dyx[:b].sum(0), f_dyx[b:].sum(0)])
+        g_dy, g_dyx = sum_dy, sum_dyx
+        if axis is not None:
+            g_dy, g_dyx = L.all_reduce_sums(axis, sum_dy, sum_dyx)
         sf = scale.float()
         a_ns = _per_sample((inv * sf).repeat(1, 2), b)
-        sd_ns = _per_sample((sum_dy / cnt).repeat(1, 2), b)
-        sdx_ns = _per_sample((sum_dyx / cnt).repeat(1, 2), b)
+        sd_ns = _per_sample((g_dy / cnt).repeat(1, 2), b)
+        sdx_ns = _per_sample((g_dyx / cnt).repeat(1, 2), b)
         dx = (a_ns * (dyf - sd_ns - xhat * sdx_ns)).to(y.dtype)
         return (dx, sum_dyx.sum(0).to(scale.dtype),
-                sum_dy.sum(0).to(scale.dtype), None, None)
+                sum_dy.sum(0).to(scale.dtype), None, None, None)
 
 
 def _bn_wp(y, s1, s2, params, state, *, train, momentum=L.BN_MOMENTUM,
@@ -108,10 +123,12 @@ def _bn_wp(y, s1, s2, params, state, *, train, momentum=L.BN_MOMENTUM,
         a2 = (inv * sf).repeat(2)
         c2 = (params["bias"].float() - state["mean"] * inv * sf).repeat(2)
         return (y.float() * a2 + c2).to(y.dtype), state
-    cnt = (n // 2) * h * wp * 2
-    mean, var = _fold_stats(s1, s2, cnt)
+    axis = L.current_bn_axis()
+    cnt = (n // 2) * h * wp * 2 * (1 if axis is None else axis.size)
+    mean, var = _fold_stats(s1, s2, cnt, axis)
     inv = torch.rsqrt(var + eps)
-    out = _BnApplyWp.apply(y, params["scale"], params["bias"], mean, inv)
+    out = _BnApplyWp.apply(y, params["scale"], params["bias"], mean, inv,
+                           axis)
     return out, L.ema_update(state, mean, var, cnt, momentum)
 
 

@@ -17,9 +17,16 @@ checkpoint, rotated autosaves, and a SIGTERM drain that checkpoints and
 returns. ``device`` (default: the card; raises without one) is the one
 argument the JAX package has no counterpart to. ``quantized`` trains with
 int8 conv arithmetic (``models/qtrain.py``, the vanilla backbone only);
-``arch`` picks the backbone family (``models/arch.py``). Not ported here:
-``mesh``, ``pipeline_microbatches`` and ``spatial`` (ROADMAP.md, Queue A
-item 4); they raise ``NotImplementedError``.
+``arch`` picks the backbone family (``models/arch.py``).
+
+``mesh`` (``core/mesh.py``) trains data parallel; with ``spatial`` by
+halo exchange (``parallel/halo.py``), with ``pipeline_microbatches`` by
+the GPipe pipeline (``parallel/pipeline.py``), refused where the JAX
+package refuses them. Every rank runs this function: each generates the
+same seeded data and its steps take their rows of each global batch, so
+every rank holds the same parameters. Only the first rank of the mesh
+writes checkpoints, logs and curves; every rank resumes from them. A
+SIGTERM on any rank stops every rank at the same step.
 
 Random streams come from ``core/prng.py`` (seed -> data, model, loop);
 each epoch's shuffle and augmentation draw from a generator derived from
@@ -47,8 +54,7 @@ from onet_tpu_torch.models.unet import param_count
 from onet_tpu_torch.report.logs import epoch_log_line, setup_logging
 from onet_tpu_torch.train.optim import adam_init, step_decay
 from onet_tpu_torch.train.preempt import PreemptGuard
-from onet_tpu_torch.train.steps import (_not_ported, make_eval_step,
-                                        make_train_step)
+from onet_tpu_torch.train.steps import make_eval_step, make_train_step
 
 
 @dataclasses.dataclass
@@ -101,6 +107,64 @@ class SimclutterConfig:
     loss: str = "jsd"
 
 
+def _check_parallel(config, arch, mesh, pipeline_microbatches, spatial):
+    """The JAX package's refusals of the parallel options."""
+    if pipeline_microbatches:
+        if mesh is None:
+            raise ValueError("pipeline_microbatches requires a "
+                             "('data', 'stage') mesh")
+        if config.quantized:
+            raise ValueError("pipeline training is exact-arithmetic only")
+        if not arch.vanilla:
+            raise ValueError("pipeline stages are defined on the vanilla "
+                             "conv U-Net only")
+        if config.loss != "jsd":
+            raise ValueError("pipeline training uses the jsd objective "
+                             "(the per-microbatch schedule fixes the loss)")
+    elif spatial:
+        if mesh is None:
+            raise ValueError("spatial=True requires a ('data','space'"
+                             "[,'spacew']) mesh")
+        if config.quantized:
+            raise ValueError("spatial training is exact-arithmetic only")
+        if not arch.vanilla or config.loss != "jsd":
+            raise ValueError("spatial training is defined on the vanilla "
+                             "conv U-Net with the jsd objective")
+
+
+def _steps(config, policy, fwd, mesh, pipeline_microbatches, spatial):
+    """(train_step, eval_step) for the driver's options."""
+    kw = dict(policy=policy, bias=config.bias)
+    if pipeline_microbatches:
+        from onet_tpu_torch.parallel.pipeline import make_pp_train_step
+        return (make_pp_train_step(mesh, microbatches=pipeline_microbatches,
+                                   **kw),
+                make_eval_step(align="flip", **kw))
+    if spatial:
+        from onet_tpu_torch.parallel.halo import make_spatial_train_step
+        train_step = make_spatial_train_step(mesh, **kw)
+        eval_step = make_eval_step(align="flip", mesh=mesh, **kw)
+    else:
+        train_step = make_train_step(mesh=mesh, quantized=config.quantized,
+                                     forward=fwd, loss=config.loss, **kw)
+        eval_step = make_eval_step(align="flip", mesh=mesh, forward=fwd,
+                                   loss=config.loss, **kw)
+    if mesh is None:
+        return train_step, eval_step
+    # an eval batch the data axis does not divide runs the plain eval
+    n_data = mesh.shape.get("data", mesh.size)
+    eval_mesh = eval_step
+    eval_plain = make_eval_step(align="flip", forward=fwd, loss=config.loss,
+                                **kw)
+
+    def eval_any(p, b, x, labels):
+        if x.shape[0] % n_data == 0:
+            return eval_mesh(p, b, x, labels)
+        return eval_plain(p, b, x, labels)
+
+    return train_step, eval_any
+
+
 def evaluate(eval_step, params, bn_state, test_ds: ArrayDataset,
              batch_sz: int):
     """Batch-averaged metric bundle (the reference's test_simclutter)."""
@@ -122,14 +186,20 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
     """Run the workload on ``device``. Returns (params, bn_state,
     history): history["loss"] per epoch, history["eval"] {epoch: metrics}
     and, after a SIGTERM drain, history["preempted"] (the epoch it cut).
-    ``datasets=(train, test)`` skips generation."""
-    _not_ported(mesh=mesh, pipeline_microbatches=pipeline_microbatches,
-                spatial=spatial)
+    ``datasets=(train, test)`` skips generation.
+
+    ``pipeline_microbatches``: the GPipe step on a ``('data', 'stage')``
+    ``mesh``; eval stays one replicated graph, and a batch that does not
+    split into microbatches x data shards is skipped. ``spatial``: the
+    halo-exchange step on a ``('data', 'space'[, 'spacew'])`` mesh; eval
+    splits the batch over ``data``. Either way an eval batch that the
+    ``data`` axis does not divide runs the plain eval on every rank."""
     arch = get_arch(config.arch, swin_window=config.swin_window,
                     swin_embed=config.swin_embed,
                     convnext_embed=config.convnext_embed,
                     transunet_embed=config.transunet_embed,
                     transunet_depth=config.transunet_depth)
+    _check_parallel(config, arch, mesh, pipeline_microbatches, spatial)
     dev = resolve_device(device)
     stream = RngStream(config.seed, device=dev)
     g_data = stream.next()
@@ -149,11 +219,11 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                                  base=config.base_channels, device=dev)
     fwd = None if arch.vanilla else arch.forward
     opt_state = adam_init(params)
-    train_step = make_train_step(policy=policy, bias=config.bias,
-                                 quantized=config.quantized, forward=fwd,
-                                 loss=config.loss)
-    eval_step = make_eval_step(policy=policy, align="flip", bias=config.bias,
-                               forward=fwd, loss=config.loss)
+    train_step, eval_step = _steps(config, policy, fwd, mesh,
+                                   pipeline_microbatches, spatial)
+    lead = mesh is None or mesh.rank == mesh.ranks[0]
+    log = log and lead
+    world = None if mesh is None else mesh.world
 
     if log:
         setup_logging(config.out_root, config.model_name)
@@ -191,6 +261,11 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
             for batch in batch_iterator(train_ds, config.batch_sz,
                                         gen=g_epoch):
                 x = batch["imgs"]
+                if pipeline_microbatches and x.shape[0] % (
+                        pipeline_microbatches * mesh.shape.get("data", 1)):
+                    # GPipe needs full microbatches: the ragged tail is
+                    # dropped (shuffled each epoch, so no frame always)
+                    continue
                 if config.aug:
                     from onet_tpu_torch.data.augment import (
                         simclutter_pixel_augment)
@@ -198,9 +273,9 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                 params, bn_state, opt_state, loss = train_step(
                     params, bn_state, opt_state, x, lr)
                 losses.append(loss)
-                if guard.triggered:
+                if guard.triggered_on_any(world, dev):
                     break
-            if guard.triggered:
+            if guard.settled_on_any(world):
                 # checkpoint into the autosave namespace (auto-resume finds
                 # it; rotation keeps it inside autosave_keep). The cut epoch
                 # is recorded as NOT done (epoch - 1): resume redoes it.
@@ -208,8 +283,9 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                     config.out_root,
                     f"{config.model_name}_autosave_{max(epoch - 1, 0)}"
                     f"_{mark}.npz")
-                writer.save(path, params, bn_state, epoch - 1,
-                            opt_state=opt_state, meta=arch_meta(config))
+                if lead:
+                    writer.save(path, params, bn_state, epoch - 1,
+                                opt_state=opt_state, meta=arch_meta(config))
                 history["preempted"] = epoch
                 msg = (f"SIGTERM: preempted at epoch {epoch}; checkpoint "
                        f"saved -> {path} (resume=True continues)")
@@ -217,6 +293,10 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                     print(msg)
                     logging.warning(msg)
                 break
+            if not losses:
+                raise ValueError(
+                    f"every batch was dropped: no batch of {config.batch_sz} "
+                    "divides into the pipeline's microbatches x data shards")
             loss_epoch = float(torch.mean(torch.stack(losses)))
             history["loss"].append(loss_epoch)
 
@@ -236,7 +316,7 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
                         and epoch % config.autosave_every == 0)
             milestone = (epoch == config.epoch_nums - 1
                          or epoch in config.save_epochs)
-            if milestone or autosave:
+            if lead and (milestone or autosave):
                 # autosaves have their own file name namespace, so rotation
                 # never deletes a milestone (or another model's file)
                 tag = "epoch" if milestone else "autosave"

@@ -16,8 +16,12 @@ The reference's Train_Onet_on_zy3_20240606.py:74-177, rebuilt:
 
 ``device`` (default: the card; raises without one) is the one argument
 the JAX package has no counterpart to; ``arch`` picks the backbone family
-(``models/arch.py``). Not ported: ``mesh`` (ROADMAP.md, Queue A item 4);
-it raises ``NotImplementedError``.
+(``models/arch.py``). ``mesh`` (``core/mesh.py``) makes the train step
+data parallel (every rank runs ``train`` on the same data and its steps
+take their rows of each batch); the eval stays one graph on every rank,
+as in the JAX package. Only the mesh's first rank writes checkpoints,
+logs and curves, and a SIGTERM on any rank stops every rank at the same
+step.
 Each epoch's shuffle and augmentation draw from a generator derived from
 (loop seed, epoch), so a restarted epoch draws what it would have drawn.
 
@@ -49,8 +53,7 @@ from onet_tpu_torch.models.onet import LOSSES, onet_forward, predict_label
 from onet_tpu_torch.report.logs import setup_logging
 from onet_tpu_torch.train.optim import adam_init, cosine_warm_restarts
 from onet_tpu_torch.train.preempt import PreemptGuard
-from onet_tpu_torch.train.steps import (_not_ported, make_grad_step,
-                                        make_train_step)
+from onet_tpu_torch.train.steps import make_grad_step, make_train_step
 
 METRICS = ("acc", "miou", "dr", "far", "tiou")
 GROUP_NAMES = ("normal_cloud", "thin_cloud", "snow_cloud")
@@ -259,7 +262,6 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
     and, after a SIGTERM drain, history["preempted"] (the epoch it cut).
     ``progress_cb(epoch, loss, metrics)`` is called after each epoch's
     eval."""
-    _not_ported(mesh=mesh)
     arch = get_arch(config.arch, swin_window=config.swin_window,
                     swin_embed=config.swin_embed,
                     convnext_embed=config.convnext_embed,
@@ -285,9 +287,12 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
             logging.warning("Checkpoint %s has no optimizer state; Adam "
                             "moments restart from zero", config.restart_from)
     fwd = None if arch.vanilla else arch.forward
-    train_step = make_train_step(policy=policy, forward=fwd,
+    train_step = make_train_step(policy=policy, mesh=mesh, forward=fwd,
                                  loss=config.loss)
     eval_batch = make_zy3_eval(policy=policy, forward=fwd, loss=config.loss)
+    lead = mesh is None or mesh.rank == mesh.ranks[0]
+    log = log and lead
+    world = None if mesh is None else mesh.world
 
     if log:
         setup_logging(config.out_root, config.model_name)
@@ -311,17 +316,19 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
                 params, bn_state, opt_state, loss = train_step(
                     params, bn_state, opt_state, x, lr)
                 losses.append(loss)
-                if guard.triggered:
+                if guard.triggered_on_any(world, dev):
                     break
-            if guard.triggered:
+            if guard.settled_on_any(world):
                 # the cut epoch is recorded as NOT done: restart_from redoes
                 # it in full
                 path = os.path.join(
                     config.out_root,
                     f"{config.model_name}_preempt{max(epoch - 1, 0)}"
                     f"_{mark}.npz")
-                save_checkpoint(path, params, bn_state, epoch - 1,
-                                opt_state=opt_state, meta=arch_meta(config))
+                if lead:
+                    save_checkpoint(path, params, bn_state, epoch - 1,
+                                    opt_state=opt_state,
+                                    meta=arch_meta(config))
                 history["preempted"] = epoch
                 msg = (f"SIGTERM: preempted at epoch {epoch}; checkpoint "
                        f"saved -> {path} (pass restart_from to continue)")
@@ -345,7 +352,8 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
             if progress_cb:
                 progress_cb(epoch, loss_epoch, metrics)
 
-            if epoch == config.epoch_nums - 1 or epoch in config.save_epochs:
+            if lead and (epoch == config.epoch_nums - 1
+                         or epoch in config.save_epochs):
                 path = os.path.join(
                     config.out_root,
                     f"{config.model_name}_epoch{epoch}_{mark}.npz")
@@ -370,8 +378,8 @@ def make_supervised_train_step(*, policy: Policy = DEFAULT, mesh=None):
     labels, lr) -> (params, bn_state, opt_state, loss), a pixel-wise cross
     entropy on the class-probability map S (the reference defines the
     supervised ZY-3 datasets but no supervised objective). Params and Adam
-    state are updated in place, as ``make_train_step``'s."""
-    _not_ported(mesh=mesh)
+    state are updated in place, as ``make_train_step``'s. ``mesh``: data
+    parallel over its ``data`` axis, on the global batch and labels."""
 
     def cross_entropy(params, bn_state, x, labels):
         out, new_bn = onet_forward(params, bn_state, x, train=True,
@@ -380,4 +388,4 @@ def make_supervised_train_step(*, policy: Policy = DEFAULT, mesh=None):
         y = labels.to(torch.int64)[..., None]
         return -torch.mean(torch.gather(logp, -1, y)), new_bn
 
-    return make_grad_step(cross_entropy, policy)
+    return make_grad_step(cross_entropy, policy, mesh=mesh)

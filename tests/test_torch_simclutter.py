@@ -193,13 +193,34 @@ def test_sigterm_drains_and_resumes(jax_data, port_init, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(pipeline_microbatches=2), dict(spatial=True),
-    dict(config=TS.SimclutterConfig(arch="convnext"), mesh=object()),
-    dict(config=TS.SimclutterConfig(arch="swin"), spatial=True),
+    dict(mesh=True), dict(pipeline_microbatches=2), dict(spatial=True),
+    dict(config=TS.SimclutterConfig(arch="convnext"), mesh=True,
+         pipeline_microbatches=2),
+    dict(config=TS.SimclutterConfig(arch="swin"), mesh=True, spatial=True),
 ])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TS.train(**kw, log=False, device="cpu")
+def test_unported_options_raise(jax_data, port_init, port_run, tmp_path,
+                                kw):
+    """The parallel options, once refused as not ported: a mesh of one
+    rank (no process group) trains exactly as the plain driver does, and
+    the rest are the JAX package's own refusals (ValueError): the
+    pipeline or the spatial step without a mesh, either on a backbone
+    other than the vanilla U-Net. Many-rank runs:
+    tests/test_torch_parallel_drivers.py."""
+    from onet_tpu_torch.core.mesh import make_mesh
+    if kw.get("mesh"):
+        kw = dict(kw, mesh=make_mesh((1,), ("data",)))
+    if "config" in kw or "pipeline_microbatches" in kw or "spatial" in kw:
+        with pytest.raises(ValueError):
+            TS.train(**kw, log=False, device="cpu")
+        return
+    train_ds, test_ds = (_to_port(d) for d in jax_data)
+    cfg = TS.SimclutterConfig(**{**CFG, "epoch_nums": 1},
+                              batch_sz=len(train_ds), out_root=str(tmp_path))
+    _, _, hist = TS.train(cfg, datasets=(train_ds, test_ds), log=False,
+                          device="cpu", **kw)
+    full = port_run[1]
+    assert hist["loss"][0] == full["loss"][0]
+    assert hist["eval"][0] == full["eval"][0]
 
 
 @pytest.mark.parametrize("kw", [dict(loss="rsn"), dict(aug=True)])

@@ -354,16 +354,34 @@ def test_eval_step_matches_jax(model, align):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=2e-3)
 
 
-def test_steps_refuse_what_is_not_ported():
-    for kw in (dict(mesh=object()), dict(spatial=True),
-               dict(spatial=True, forward=lambda *a, **k: None)):
-        with pytest.raises(NotImplementedError):
+def test_steps_refuse_what_is_not_ported(model):
+    """What the step builders refuse is what the JAX package refuses:
+    int8 or spatial training on another backbone. A mesh of one rank (no
+    process group) gives the plain steps' results bit for bit, and
+    ``spatial`` without a mesh changes nothing, as in JAX. Many-rank
+    meshes: tests/test_torch_parallel.py."""
+    from onet_tpu_torch.core.mesh import make_mesh
+    for kw in (dict(spatial=True, forward=lambda *a, **k: None),
+               dict(quantized="fwd", forward=lambda *a, **k: None)):
+        with pytest.raises(ValueError):
             make_train_step(**kw)
-    with pytest.raises(NotImplementedError):
-        make_eval_step(mesh=object())
-    # int8 training is ported, for the vanilla backbone only (JAX's rule)
-    with pytest.raises(ValueError):
-        make_train_step(quantized="fwd", forward=lambda *a, **k: None)
+    params, state = model["shared"]
+    x = torch.tensor(model["x"])
+    labels = (x[..., 0] > 0.5).to(torch.int32)
+    mesh = make_mesh((1, 1), ("data", "space"))
+    got = [make_train_step(**kw).loss_and_grads(*_port(params, state), x)
+           for kw in (dict(), dict(mesh=mesh), dict(spatial=True),
+                      dict(mesh=mesh, spatial=True))]
+    for v, bn, g in got[1:]:
+        assert torch.equal(v, got[0][0])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(g), tree_leaves(got[0][2])))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(bn), tree_leaves(got[0][1])))
+    m0, v0, p0 = make_eval_step()(*_port(params, state), x, labels)
+    m1, v1, p1 = make_eval_step(mesh=mesh)(*_port(params, state), x, labels)
+    assert torch.equal(v0, v1) and torch.equal(p0, p1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
 
 
 # ---------------------------------------------------------------------------

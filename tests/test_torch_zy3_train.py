@@ -210,18 +210,69 @@ def test_loss_and_aug_options_train(jax_data, port_init, tmp_path, kw):
     assert np.isfinite(hist["loss"][0])
 
 
+def _one_rank_mesh():
+    from onet_tpu_torch.core.mesh import make_mesh
+    return make_mesh((1,), ("data",))
+
+
+def _mesh_driver_epoch(jax_data, port_run, tmp_path):
+    """train(mesh=) on a mesh of one rank: the plain driver's first epoch,
+    bit for bit."""
+    train_ds, test_ds = (_to_port(d) for d in jax_data)
+    cfg = TT.Zy3Config(**{**CFG, "epoch_nums": 1}, batch_sz=len(train_ds),
+                       out_root=str(tmp_path))
+    _, _, hist = TT.train(cfg, train_ds, test_ds, mesh=_one_rank_mesh(),
+                          log=False, device="cpu")
+    assert hist["loss"][0] == port_run[1]["loss"][0]
+    assert hist["eval"][0] == port_run[1]["eval"][0]
+
+
+def _mesh_family_step(name):
+    """make_train_step(mesh=, forward=) of another family (ZY-3's driver
+    builds it so) on a mesh of one rank: the plain step's loss and
+    gradient, bit for bit."""
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.train.steps import make_train_step
+
+    arch = get_arch(name, swin_window=2, swin_embed=12, convnext_embed=16)
+    p, s = arch.init(torch.Generator().manual_seed(3), 3, base=64,
+                     device="cpu")
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(4))
+    got = [make_train_step(forward=arch.forward, **kw).loss_and_grads(
+        p, s, x) for kw in (dict(), dict(mesh=_one_rank_mesh()))]
+    assert torch.equal(got[0][0], got[1][0])
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got[0][2]), tree_leaves(got[1][2])))
+
+
+def _mesh_supervised_step(jax_data, jax_init):
+    train_ds, _ = jax_data
+    x = torch.tensor(np.array(train_ds["imgs"][:4]))
+    lab = torch.tensor(np.array(train_ds["labels"][:4]))
+    out = []
+    for kw in (dict(), dict(mesh=_one_rank_mesh())):
+        tp, ts = from_jax_numpy(*jax_init, device="cpu")
+        out.append(TT.make_supervised_train_step(**kw)(
+            tp, ts, adam_init(tp), x, lab, 1e-4))
+    assert torch.equal(out[0][3], out[1][3])
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(out[0][0]), tree_leaves(out[1][0])))
+
+
 @pytest.mark.parametrize("call", [
-    lambda: TT.train(TT.Zy3Config(), None, None, mesh=object(), log=False,
-                     device="cpu"),
-    lambda: TT.train(TT.Zy3Config(arch="swin"), None, None, mesh=object(),
-                     log=False, device="cpu"),
-    lambda: TT.train(TT.Zy3Config(arch="convnext"), None, None,
-                     mesh=object(), log=False, device="cpu"),
-    lambda: TT.make_supervised_train_step(mesh=object()),
+    lambda d, r, t, i: _mesh_driver_epoch(d, r, t),
+    lambda d, r, t, i: _mesh_family_step("swin"),
+    lambda d, r, t, i: _mesh_family_step("convnext"),
+    lambda d, r, t, i: _mesh_supervised_step(d, i),
 ])
-def test_unported_options_raise(call):
-    with pytest.raises(NotImplementedError):
-        call()
+def test_unported_options_raise(jax_data, port_init, port_run, jax_init,
+                                tmp_path, call):
+    """``mesh``, once refused as not ported, in the driver (vanilla), in the
+    step the driver builds for the other families, and in the supervised
+    step: the JAX package refuses none of them, and on a mesh of one rank
+    (no process group) each gives the plain result bit for bit. Many-rank
+    runs: tests/test_torch_parallel_drivers.py."""
+    call(jax_data, port_run, tmp_path, jax_init)
 
 
 def test_zy3_eval_per_image_matches_jax(jax_data, jax_init):
