@@ -145,6 +145,20 @@ Phases, each fatal on failure:
      there are not multi-GPU numbers; (c) with two or more cards, (b)'s
      cases over NCCL on min(4, count) cards and the data-parallel frames/s
      summed over ranks.
+ 13. the command line (``cli_workload``, ``onet_tpu_torch/run.py`` in this
+     process, pair-packed, bf16): (a) ``run reproduce --scale smoke`` (the
+     eight stages at base 64, 224^2, NAU 200^2, ZY-3 scenes 384^2), each
+     stage's seconds and its launches held to its steps x 6/1/4 and
+     unfolded forwards x 2/1/0 (``reproduce_expect``), both reports read
+     back; (b) ``run summary`` on the card equal to its CPU run, 31.04 M
+     parameters; (c) ``run serve --http 0 --http-requests 3`` on (a)'s
+     newest simclutter checkpoint, 8 frames at 512^2 a request, masks equal
+     to a direct ``onet_infer``, launches 2/1 a request; ``export-artifact``
+     then ``serve`` of the artifact, one request, equal to its own call;
+     (d) ``utils/profiling``: ``trace`` + ``category_breakdown`` of phase
+     4's pair-packed step, the elementwise share, ``StepTimer`` beside
+     phase 4's CUDA-event time; (e) ``bench`` and ``simclutter --dp 2``
+     exit with their messages.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -4211,6 +4225,326 @@ def parallel_workload(TC, dev, trained) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the command line, its libraries and the one-command reproduction
+# ---------------------------------------------------------------------------
+
+PHASE13_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke_phase13")
+CLI_REQUESTS = 3                 # POST /segment requests of 8 frames, 512^2
+SERVE_LAUNCHES = {"conv3x3_wp": 2, "conv3x3_wp2": 1}   # a folded batch
+PROFILE_STEPS = 5                # StepTimer's steps of phase 4's step
+
+
+def reproduce_expect(S) -> dict:
+    """Each reproduction stage's launches of the pair-packed kernels at
+    scale ``S``, from its train steps and unfolded forwards (``expect``):
+    the simclutter driver's steps and evals (every ``eval_every`` epochs and
+    the last) over its 90/10 split, a forward per batch of the sweeps
+    (batch 10 a level, two models), the two-stage pass (two forwards a batch
+    of ``batch``), the NAU transfer (10 frames, batch 5; 200^2 takes the
+    kernels), the ZY-3 driver (an eval each epoch and the report's, batch 4)
+    and one forward of the variant stack a scene in the on-ramp choice."""
+    from onet_tpu_torch.data.arrays import num_batches
+
+    def sim(levels):
+        n = len(levels) * S["frames"]
+        n_train = int(n * 0.9)
+        evals = sum(e % S["eval_every"] == 0 or e == S["sim_epochs"] - 1
+                    for e in range(S["sim_epochs"]))
+        return expect(evals * num_batches(n - n_train, S["batch"]),
+                      S["sim_epochs"] * num_batches(n_train, S["batch"]))
+
+    zb = min(4, S["batch"])
+    n_train, n_test = S["zy3_n"]
+    return {"gen_data": expect(0), "sim_low": sim(range(0, 3)),
+            "sim_high": sim(range(5, 11)),
+            "sweep": expect(2 * 11 * num_batches(S["sweep_frames"], 10)),
+            "two_stage": expect(2 * 11 * num_batches(S["sweep_frames"],
+                                                     S["batch"])),
+            "nau": expect(num_batches(10, 5)),
+            "zy3": expect((S["zy3_epochs"] + 1) * num_batches(n_test, zb),
+                          S["zy3_epochs"] * num_batches(n_train, zb)),
+            "choose_preprocess": expect(S["scenes"])}
+
+
+def cli_reproduce(TC, res) -> str:
+    """Phase 13 (a): ``run reproduce --scale smoke`` on the card, the
+    pair-packed kernels' launches counted per stage and held to
+    ``reproduce_expect``; both reports read back. Returns the newest
+    simclutter milestone it saved (for (c))."""
+    import glob
+
+    from onet_tpu_torch.run import main
+    from onet_tpu_torch.runs import reproduce_all as RA
+
+    out = os.path.join(PHASE13_DIR, "reproduce_smoke")
+    per_stage = {}
+    real_stage = RA._stage
+
+    def counted(report, name, fn):
+        torch.cuda.synchronize()
+        reset_counts(TC)
+        rec = real_stage(report, name, fn)
+        torch.cuda.synchronize()
+        per_stage[name] = launch_counts(TC)
+        return rec
+
+    RA._stage = counted
+    try:
+        t0 = time.perf_counter()
+        main(["reproduce", "--scale", "smoke", "--device", "cuda", "--out",
+              out])
+        wall = time.perf_counter() - t0
+    finally:
+        RA._stage = real_stage
+    with open(os.path.join(out, "reproduce.json")) as f:
+        rep = json.load(f)
+    with open(os.path.join(out, "REPRODUCE.md")) as f:
+        md = f.read()
+    want = reproduce_expect(RA.SCALES["smoke"])
+    seconds = {k: v["seconds"] for k, v in rep["stages"].items()}
+    log(f"[cli] reproduce --scale smoke: {wall:.1f} s; stage seconds "
+        f"{seconds}; backend {rep['backend']}")
+    for name, got in per_stage.items():
+        log(f"[cli]   {name}: launches {got}")
+    if tuple(rep["stages"]) != tuple(RA.ANCHORS) or \
+            tuple(per_stage) != tuple(RA.ANCHORS):
+        raise AssertionError(f"stages {list(rep['stages'])}")
+    if per_stage != want:
+        bad = {k: (per_stage[k], want[k]) for k in want
+               if per_stage[k] != want[k]}
+        raise AssertionError(f"reproduce launches (got, want): {bad}")
+    if rep["backend"] != torch.cuda.get_device_name(0) or \
+            rep["params"] != json.loads(json.dumps(RA.SCALES["smoke"])):
+        raise AssertionError(f"report header {rep['backend']} "
+                             f"{rep['params']}")
+    for name in ("gen-data", "simclutter PSNR0-2", "per-PSNR verify",
+                 "two-stage", "NAU transfer",
+                 f"zy3 ({RA.SCALES['smoke']['zy3_epochs']} epochs)",
+                 "preprocess selection"):
+        if name not in md:
+            raise AssertionError(f"REPRODUCE.md lacks {name!r}")
+    for s in ("sim_low", "sim_high", "zy3"):
+        e = rep["stages"][s]["final_eval"]
+        if not all(0.0 <= e[k] <= 1.0 for k in ("acc", "miou", "dr", "far")):
+            raise AssertionError(f"{s} final eval {e}")
+    res["reproduce"] = dict(wall_s=wall, stage_s=seconds,
+                            launches=per_stage,
+                            methods=rep["stages"]["nau"]["methods"])
+    found = glob.glob(os.path.join(out, "sim_clutter", "*_epoch_*.npz"))
+    return max(found, key=os.path.getmtime)
+
+
+def cli_summary(res) -> None:
+    """Phase 13 (b): ``run summary`` on the card (base 64, 224^2) and on
+    the CPU, line for line."""
+    from onet_tpu_torch.run import main
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["summary", "--device", dev])
+        outs[dev] = buf.getvalue().splitlines()
+    log("[cli] summary on the card: " + " | ".join(outs["cuda"][:2]
+                                                   + outs["cuda"][-1:]))
+    if outs["cuda"] != outs["cpu"] or outs["cuda"][0] != "params: 31.04 M":
+        raise AssertionError(f"summary card vs CPU: {outs}")
+    res["summary_lines"] = len(outs["cuda"])
+
+
+def _cli_serve(argv, requests, frames_in, TC=None):
+    """``run serve ... --http 0`` in a thread; ``requests`` POST /segment
+    of ``frames_in``. Returns (masks of each request, launches of the
+    pair-packed kernels during the requests, wall ms of each)."""
+    from onet_tpu_torch.run import main
+    from onet_tpu_torch.serve import http
+
+    bound = threading.Event()
+    real = http.start_server
+    url = {}
+
+    def start(sess, port):
+        server = real(sess, port)
+        url["u"] = f"http://127.0.0.1:{server.server_address[1]}"
+        torch.cuda.synchronize()
+        if TC is not None:
+            reset_counts(TC)
+        bound.set()
+        return server
+
+    http.start_server = start
+    th = threading.Thread(target=main, args=(argv,), daemon=True)
+    try:
+        th.start()
+        if not bound.wait(600):
+            raise AssertionError("run serve did not bind")
+        masks, ms = [], []
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            masks.append(post(url["u"] + "/segment", frames_in))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        th.join(120)
+        if th.is_alive():
+            raise AssertionError("run serve did not exit after its requests")
+    finally:
+        http.start_server = real
+    return masks, None if TC is None else launch_counts(TC), ms
+
+
+def cli_serve(TC, dev, res, ckpt: str) -> None:
+    """Phase 13 (c): ``run serve --http 0 --http-requests 3`` on the
+    reproduction's checkpoint, 8 frames at 512^2 a request, the masks
+    against a direct ``onet_infer`` and the launches counted; then
+    ``export-artifact`` and ``serve`` of the artifact, one request, against
+    the artifact's own call."""
+    from onet_tpu_torch.core.checkpoint import load_onet_auto
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import fold_onet, onet_infer
+    from onet_tpu_torch.run import main
+    from onet_tpu_torch.serve.artifact import load_serving_artifact
+
+    x = frames(8, SEED + 90)
+    inp = os.path.join(PHASE13_DIR, "frames.npz")
+    np.savez(inp, imgs=x)
+    common = ["--input", inp, "--serve-batch", "8", "--http", "0",
+              "--device", "cuda"]
+    masks, launches, ms = _cli_serve(
+        ["serve", "--model", ckpt, "--http-requests", str(CLI_REQUESTS)]
+        + common, CLI_REQUESTS, x, TC)
+    want = {k: 0 for k in launch_counts(TC)}
+    want.update({k: v * CLI_REQUESTS for k, v in SERVE_LAUNCHES.items()})
+    params, state, _ = load_onet_auto(ckpt, dev)
+    with torch.inference_mode():
+        direct = onet_infer(fold_onet(params, state),
+                            torch.from_numpy(x).to(dev),
+                            policy=BF16_COMPUTE)[1].cpu().numpy()
+    same = [bool(np.array_equal(m, direct)) for m in masks]
+    log(f"[cli] serve --http: {CLI_REQUESTS} requests of 8 frames at "
+        f"{H}x{W}, ms {[round(v, 2) for v in ms]}, launches {launches}, "
+        f"masks equal to onet_infer {same}, foreground share "
+        f"{float(direct.mean()):.4f}")
+    if launches != want or not all(same):
+        raise AssertionError(f"run serve: launches {launches} (want {want})"
+                             f", masks equal {same}")
+
+    art = os.path.join(PHASE13_DIR, "model.onetx")
+    t0 = time.perf_counter()
+    main(["export-artifact", "--model", ckpt, "--out", art, "--input-sz",
+          str(H), "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    amasks, _, ams = _cli_serve(["serve", "--model", art,
+                                 "--http-requests", "1"] + common, 1, x)
+    call, meta = load_serving_artifact(art, dev)
+    acall = call(torch.from_numpy(x).to(dev))[1].cpu().numpy()
+    agree = float((amasks[0] == direct).mean())
+    log(f"[cli] export-artifact {export_s:.1f} s ({meta['arithmetic']}, "
+        f"{meta['device']}); serve of the artifact: {ams[0]:.2f} ms, masks "
+        f"equal to the artifact's call {np.array_equal(amasks[0], acall)}, "
+        f"agreement with the live pair-packed masks {agree:.6f}")
+    if not np.array_equal(amasks[0], acall):
+        raise AssertionError("served artifact masks differ from its call")
+    res["serve"] = dict(request_ms=ms, launches=launches,
+                        export_s=export_s, artifact_request_ms=ams[0],
+                        artifact_vs_live=agree)
+
+
+def cli_profile(dev, res, trained) -> None:
+    """Phase 13 (d): ``utils/profiling`` on phase 4's pair-packed step
+    (512^2, batch 8, bf16): ``trace`` + ``category_breakdown`` of one step,
+    the eager elementwise share, and ``StepTimer`` over PROFILE_STEPS
+    steps beside phase 4's CUDA-event step time."""
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+    from onet_tpu_torch.utils.profiling import (StepTimer, category_breakdown,
+                                               hlo_breakdown, trace)
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    params, state = O.onet_init(gen, 1, base=64, device=dev)
+    opt = adam_init(params)
+    x = torch.from_numpy(frames(8, SEED + 30)).to(dev)
+    with pair_pack(O, True):
+        step = make_train_step(policy=BF16_COMPUTE)
+        for _ in range(2):
+            params, state, opt, loss = step(params, state, opt, x, LR)
+        StepTimer.sync(loss)
+        logdir = os.path.join(PHASE13_DIR, "trace")
+        with trace(logdir):
+            params, state, opt, loss = step(params, state, opt, x, LR)
+            StepTimer.sync(loss)
+        timer = StepTimer(dev)
+        for _ in range(PROFILE_STEPS):
+            params, state, opt, loss = step(params, state, opt, x, LR)
+        step_s = timer.stop(loss, steps=PROFILE_STEPS)
+    cats = category_breakdown(logdir)
+    total = sum(cats.values())
+    top = hlo_breakdown(logdir, top=6)
+    log(f"[cli] profiled step (device ms by category, {total:.2f} ms in "
+        "all): " + ", ".join(f"{k} {v:.2f}" for k, v in cats.items()))
+    log(f"[cli]   elementwise share {cats.get('elementwise', 0) / total:.3f}"
+        f"; top kernels: " + "; ".join(
+            f"{r['name'][:60]} {r['total_ms']:.2f} ms x{r['occurrences']} "
+            f"({r['category']})" for r in top))
+    log(f"[cli] StepTimer: {step_s * 1e3:.2f} ms a step over "
+        f"{PROFILE_STEPS} steps; phase 4's CUDA-event step "
+        f"{trained['train_b8_wp_step_ms']:.2f} ms")
+    if not cats or cats.get("hand-written", 0) <= 0 or not step_s > 0:
+        raise AssertionError(f"profile categories {cats}")
+    res["profile"] = dict(categories_ms=cats, device_ms=total,
+                          elementwise_share=cats.get("elementwise", 0) / total,
+                          steptimer_ms=step_s * 1e3,
+                          phase4_ms=trained["train_b8_wp_step_ms"])
+
+
+def cli_refusals(res) -> None:
+    """Phase 13 (e): ``bench`` and ``simclutter --dp 2`` exit with their
+    messages, before any work."""
+    from onet_tpu_torch.run import main
+
+    said = {}
+    for argv, word in ((["bench"], "benchmark"),
+                       (["simclutter", "--dp", "2", "--device", "cuda"],
+                        "Queue A item 7")):
+        try:
+            main(argv)
+        except SystemExit as e:
+            said[argv[0]] = str(e)
+        if word not in said.get(argv[0], ""):
+            raise AssertionError(f"{argv}: {said.get(argv[0])!r}")
+    log(f"[cli] refusals: {said}")
+    res["refusals"] = said
+
+
+def cli_workload(TC, dev, trained) -> dict:
+    """Phase 13: the command line (``onet_tpu_torch/run.py``) in this
+    process, pair-packed, on the card: (a) the reproduction at the smoke
+    scale, (b) summary, (c) serve over HTTP and the artifact, (d) the
+    profiling tools on phase 4's step, (e) the refusals."""
+    from onet_tpu_torch.models import onet as O
+
+    res = {}
+    os.makedirs(PHASE13_DIR, exist_ok=True)
+    try:
+        with pair_pack(O, True):
+            t0 = time.perf_counter()
+            ckpt = cli_reproduce(TC, res)
+            res["a_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            cli_summary(res)
+            t0 = time.perf_counter()
+            cli_serve(TC, dev, res, ckpt)
+            res["c_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            cli_profile(dev, res, trained)
+            cli_refusals(res)
+    finally:
+        shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the "
@@ -4362,6 +4696,12 @@ def main() -> int:
     par["phase_s"] = time.perf_counter() - t0
     log("[parallel] " + json.dumps(par))
     log(f"[phase12] phase took {par['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = cli_workload(TC, dev, trained)
+    cli["phase_s"] = time.perf_counter() - t0
+    log("[cli] " + json.dumps(cli))
+    log(f"[phase13] phase took {cli['phase_s']:.1f} s on {card}")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -4461,6 +4801,19 @@ def main() -> int:
         if row["name"] in par["a"]["wp_launches"]:
             row["parallel_launches_per_step"] = \
                 par["a"]["wp_launches"][row["name"]]
+    # phase 13's launches through the command line: the reproduction's
+    # stages (train steps and unfolded forwards) and run serve's requests
+    rl = {k: sum(st[k] for st in cli["reproduce"]["launches"].values())
+          for k in launch_counts(TC)}
+    cli_launches = {"conv3x3_wp+stats": rl["conv3x3_wp+stats"],
+                    "conv3x3_wp2+stats": rl["conv3x3_wp2+stats"],
+                    "conv3x3_wp+dx": rl["conv3x3_wp"] - rl["conv3x3_wp+stats"],
+                    "conv3x3_wp_dw": rl["conv3x3_wp_dw"]}
+    for row in rows:
+        if row["name"] in cli_launches:
+            row["reproduce_launches"] = cli_launches[row["name"]]
+    for row in rows[:len(KERNELS)]:
+        row["cli_serve_launches"] = cli["serve"]["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 store ``native/tilestore.cpp`` (unchanged, shared with the JAX package, so
 a store written by one package reads in the other): open is O(1), no
 unpickling, and a read is a view of the mapping. The library is built at
-first use with ``g++`` into ``onet_tpu_torch/_build/``, named by a hash of
+first use with ``g++`` into the kernel build directory (``onet_tpu_torch/_build/``
+unless ``core/cache.py`` moves it), named by a hash of
 the source and flags, as ``ops/_build.py`` builds the CUDA sources;
 nothing is written beside the source. Without a C++ toolchain the store
 falls back to an ``.npz`` sibling, as the JAX package's does.
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from onet_tpu_torch.core.device import resolve_device
-from onet_tpu_torch.ops._build import BUILD
+from onet_tpu_torch.ops import _build as _kernels
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native", "tilestore.cpp")
@@ -45,7 +46,8 @@ _LOCK = threading.Lock()
 def _lib_path() -> str:
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
-    return os.path.join(BUILD, f"libtilestore-{digest.hexdigest()[:12]}.so")
+    return os.path.join(_kernels.BUILD,
+                        f"libtilestore-{digest.hexdigest()[:12]}.so")
 
 
 def _build(out: str) -> bool:
@@ -54,7 +56,7 @@ def _build(out: str) -> bool:
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if not cxx:
         return False
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(_kernels.BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     res = subprocess.run([cxx, *_FLAGS, "-o", tmp, _SRC],
                          capture_output=True, text=True)

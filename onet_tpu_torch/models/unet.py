@@ -10,9 +10,11 @@ last decoder output (global features), with the new BatchNorm state.
 
 ``ops`` is the injection point of the layer primitives (``DEFAULT_OPS``:
 conv3x3, batch_norm, max_pool, conv_transpose); the int8 trainer
-(``models/qtrain.py``) substitutes its conv. The JAX package's ``reshard``
-argument (mesh sharding hooks) is not ported: its parallel trainers are
-not.
+(``models/qtrain.py``) substitutes its conv, the spatial trainer its
+halo-exchange ops (``parallel/halo.py::make_halo_ops``). The JAX
+package's ``reshard`` argument (GSPMD sharding hooks) has no counterpart:
+the port's parallel trainers move data with explicit collectives
+(``parallel/``), so there is no sharding to pin.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ show_unet_adversarial (save_adversarial_grid), show_unet_adversarial_v2
 show_nau_train_result (save_loss_acc_curves), the method-comparison
 layout, and draw_test_res's epoch- and metric-named 5x5 ZY-3 grids
 (uti_zy3_test_20240123.py:42-97, save_test_res_grids). The grids take
-numpy arrays. matplotlib is imported here, at module level: drivers import
-this module only when they log or draw, so a host without matplotlib
-trains with ``log=False``.
+numpy arrays. matplotlib is imported here, at module level: the drivers
+and the command line import this module only where ``report.can_draw()``
+finds matplotlib, so a host without it trains, evaluates and reports
+without the figures.
 """
 
 from __future__ import annotations

@@ -51,6 +51,7 @@ from onet_tpu_torch.data.arrays import ArrayDataset, batch_iterator
 from onet_tpu_torch.data.simclutter import simclutter_datasets
 from onet_tpu_torch.models.arch import arch_meta, get_arch
 from onet_tpu_torch.models.unet import param_count
+from onet_tpu_torch.report import can_draw
 from onet_tpu_torch.report.logs import epoch_log_line, setup_logging
 from onet_tpu_torch.train.optim import adam_init, step_decay
 from onet_tpu_torch.train.preempt import PreemptGuard
@@ -337,7 +338,7 @@ def train(config: SimclutterConfig = SimclutterConfig(), *,
         writer.wait()
     finally:
         guard.restore()
-    if log:
+    if log and can_draw():
         from onet_tpu_torch.report.curves import save_training_curves
 
         save_training_curves(

@@ -50,6 +50,7 @@ from onet_tpu_torch.metrics.segmentation import (
     align_labels_hungarian, evaluate_binary_segmentation)
 from onet_tpu_torch.models.arch import arch_meta, get_arch
 from onet_tpu_torch.models.onet import LOSSES, onet_forward, predict_label
+from onet_tpu_torch.report import can_draw
 from onet_tpu_torch.report.logs import setup_logging
 from onet_tpu_torch.train.optim import adam_init, cosine_warm_restarts
 from onet_tpu_torch.train.preempt import PreemptGuard
@@ -363,7 +364,7 @@ def train(config: Zy3Config, train_ds: ArrayDataset, test_ds: ArrayDataset,
                     logging.info("Saved checkpoint: %s", path)
     finally:
         guard.restore()
-    if log:
+    if log and can_draw():
         from onet_tpu_torch.report.curves import save_training_curves
 
         save_training_curves(

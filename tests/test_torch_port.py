@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_onet_tpu():
                 "ops.conv_i8", "runs.quant_validate", "models.swin",
                 "models.convnext", "models.transunet", "models.iic",
                 "models.infoseg", "train.iic", "train.infoseg",
-                "train.baseline"):
+                "train.baseline", "run", "runs.reproduce_all",
+                "core.config", "core.cache", "utils.profiling"):
         assert "onet_tpu_torch." + new in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

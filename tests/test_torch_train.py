@@ -1,14 +1,16 @@
 """The port's training side (onet_tpu_torch: layers, unet, onet, optim,
 metrics, train/steps) against the JAX package on the CPU, in fp32.
 
-Weights come from the JAX init and cross through the port's bridge; inputs
-and cotangents come from numpy seeds. Base 8 at 32x32. Tolerances: float32
+Weights are drawn by the port's init (the JAX init's laws; JAX's own init
+runs op by op for ~30 s) and go to both packages as the same float32
+arrays, crossing into the port through its bridge; inputs and cotangents
+come from numpy seeds. Base 8 at 32x32. Tolerances: float32
 reassociation (the two frameworks sum the same terms in other orders) —
 1e-5 relative on the loss; BN state, S and per-layer outputs within 1e-4;
 every gradient leaf within 1e-3 of that leaf's largest magnitude (the
 reassociation noise of ~20 stacked layers, each renormalized by BatchNorm;
-measured at 4e-5 to 9e-5 on these seeds, where the port in float32 is within
-1e-5 of itself in float64). Some seeds make the shallow gradients of a net
+measured at 4e-5 to 9e-5 on the JAX init's weights, where the port in
+float32 is within 1e-5 of itself in float64). Some seeds make the shallow gradients of a net
 ill-conditioned (float32 then differs from float64 by 1%), and no float32
 comparison can be tight there; the seeds here are not such cases.
 
@@ -77,8 +79,16 @@ def _close_leaves(got, want, rel=1e-3):
 
 @pytest.fixture(scope="module")
 def model():
-    params, state = JO.onet_init(jax.random.key(0), 1, base=8)
-    twin = JO.onet_init(jax.random.key(0), 1, base=8, weight_share=False)
+    """Weights drawn by the port's init (the JAX init's laws; JAX's eager
+    init compiles op by op for ~30 s), as JAX arrays for both packages."""
+    def init(**kw):
+        return jax.tree.map(
+            lambda t: jnp.asarray(t.numpy()),
+            TO.onet_init(torch.Generator().manual_seed(0), 1, base=8,
+                         device="cpu", **kw))
+
+    params, state = init()
+    twin = init(weight_share=False)
     x = np.random.default_rng(3).uniform(0, 1, (2, 32, 32, 1)).astype(
         np.float32)
     return {"shared": (params, state), "twin": twin, "x": x}
