@@ -157,8 +157,26 @@ Phases, each fatal on failure:
      then ``serve`` of the artifact, one request, equal to its own call;
      (d) ``utils/profiling``: ``trace`` + ``category_breakdown`` of phase
      4's pair-packed step, the elementwise share, ``StepTimer`` beside
-     phase 4's CUDA-event time; (e) ``bench`` and ``simclutter --dp 2``
-     exit with their messages.
+     phase 4's CUDA-event time; (e) ``bench`` exits with its message.
+ 14. the multi-device flags, int8 training on a mesh and the NVLink
+     projection (``cli_parallel_workload``): (a) ``run simclutter --dp 1``
+     (base 64, 224^2, batch 10, bf16, pair-packed, 2 epochs) in a
+     one-rank NCCL world that ``parallel/launch.py`` starts, its history
+     and checkpoints bit-equal to the command without ``--dp`` and its
+     launches equal to steps x 6/1/4 and eval forwards x 2/1/0; (b)
+     ``--sp 1`` and ``--sp 1x1`` in that world (the halo step) within
+     phase 4's bf16 loss tolerance of the plain stacked command; (c) on
+     one card ``--dp 2``, ``--pp 2`` and ``--sp 2`` exit with JAX's
+     device-count message before any rank starts (with more cards they
+     run over NCCL); (d) ``serve --dp 1`` on 10 frames at 512^2, with and
+     without ``--http``, masks equal to ``serve``'s, launches counted, no
+     collective; (e) a gloo world of 2 processes sharing the card: int8
+     training on data (2, 1) "fwd+dx" and spatial (1, 2) "fwd" at 512^2,
+     bf16, against the one-process int8 step on the global batch (first
+     conv's scale and codes bit-equal, loss, gradient cosine), int8
+     launches a step asserted and each held to its plain version; (f)
+     ``runs/project_nvlink.py``'s projected 8-card table from phase 12
+     (b)'s and (e)'s recorded collectives and this run's one-card times.
 The second-to-last line is the kernels JSON, the last the result JSON.
 Exits non-zero without a CUDA device or without the port beside it.
 """
@@ -166,10 +184,10 @@ Exits non-zero without a CUDA device or without the port beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
-import queue
 import re
 import shutil
 import subprocess
@@ -3844,8 +3862,6 @@ def families_workload(dev, vanilla_ckpt: str) -> dict:
 # phase 12: the parallel training paths over torch.distributed
 # ---------------------------------------------------------------------------
 
-PHASE12_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "runs", "chip_smoke_phase12")
 # (mode, mesh shape, axis names, microbatches) of the many-rank worlds:
 # float32 at 512^2, base 64, 2 frames a data shard. "dp_wp" is the
 # data-parallel step on the pair-packed kernels (their BatchNorm sums
@@ -4037,6 +4053,7 @@ def _par_run(case, mesh, dev, hw: int) -> dict:
     import torch.distributed as dist
     from onet_tpu_torch.models import onet as O
     from onet_tpu_torch.ops import conv_wp as TC
+    from onet_tpu_torch.parallel.collectives import record
     from onet_tpu_torch.train.optim import adam_init
     from onet_tpu_torch.train.steps import make_train_step
 
@@ -4055,9 +4072,12 @@ def _par_run(case, mesh, dev, hw: int) -> dict:
         torch.cuda.synchronize()
         reset_counts(TC)
         t0 = time.perf_counter()
-        p, s, o, loss = step(p, s, o, x, LR)
+        with record() as noted:
+            p, s, o, loss = step(p, s, o, x, LR)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            cols = noted
         c = launch_counts(TC)
         launches.append({"conv3x3_wp+stats": c["conv3x3_wp+stats"],
                          "conv3x3_wp+dx": c["conv3x3_wp"]
@@ -4075,6 +4095,8 @@ def _par_run(case, mesh, dev, hw: int) -> dict:
            "step_ms": float(np.median(times)), "batch": batch,
            "launches": launches[0],
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if mesh.rank == 0:
+        out["collectives"] = cols       # phase 14 (f)
     # the ranks give back their cached blocks before rank 0 runs the
     # plain step on the global batch (the processes share one card)
     torch.cuda.empty_cache()
@@ -4106,65 +4128,31 @@ def _par_run(case, mesh, dev, hw: int) -> dict:
     return out
 
 
-def phase12_rank(rank, world, url, backend, device, q, hw=H) -> None:
-    """One rank of a phase-12 world: every case of PAR_CASES that fits
-    the world, then its results on ``q``."""
+def phase12_rank(hw: int) -> list:
+    """One rank of a phase-12 world (``parallel/launch.py::run_world``):
+    every case of PAR_CASES that fits the world."""
+    import torch.distributed as dist
+    from onet_tpu_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    return [_par_case(c, launch.device(), hw) for c in PAR_CASES
+            if int(np.prod(c[1])) <= world]
+
+
+def many_rank_world(world: int, backend: str, device, hw: int = H) -> list:
+    """Phase 12 (b)/(c): a world of ``world`` processes that
+    ``parallel/launch.py::run_world`` spawns; returns rank 0's case
+    results after checking every rank's. ``hw``: the frames' side (512;
+    smaller to rehearse on the CPU)."""
+    from onet_tpu_torch.parallel.launch import run_world
+
     # several processes share the card: grow segments instead of caching
     # fixed blocks, so one process's freed memory is another's
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    import torch.distributed as dist
-    from onet_tpu_torch.parallel import multihost
-
-    dev = multihost.initialize(url, world, rank, device=device,
-                               backend=backend)
-    out = [_par_case(c, dev, hw) for c in PAR_CASES
-           if int(np.prod(c[1])) <= world]
-    q.put((rank, out))
-    dist.destroy_process_group()
-
-
-def many_rank_world(world: int, backend: str, device, hw: int = H) -> list:
-    """Phase 12 (b)/(c): a world of ``world`` spawned processes; returns
-    rank 0's case results after checking every rank's. ``hw``: the
-    frames' side (512; smaller to rehearse on the CPU)."""
-    import multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    os.makedirs(PHASE12_DIR, exist_ok=True)
-    url = "file://" + os.path.join(PHASE12_DIR, f"rdv_{backend}_{world}")
-    if os.path.exists(url[7:]):
-        os.remove(url[7:])
-    procs = [ctx.Process(target=phase12_rank,
-                         args=(r, world, url, backend, device, q, hw))
-             for r in range(world)]
-    for pr in procs:
-        pr.start()
-    got = {}
-    deadline = time.perf_counter() + 600
-    try:
-        while len(got) < world:
-            try:
-                rank, out = q.get(timeout=5)
-                got[rank] = out
-            except queue.Empty:
-                dead = [pr.exitcode for pr in procs
-                        if pr.exitcode not in (None, 0)]
-                if dead or time.perf_counter() > deadline:
-                    raise AssertionError(
-                        f"phase 12 world {world} {backend}: ranks exited "
-                        f"{[pr.exitcode for pr in procs]} before answering")
-    finally:
-        for pr in procs:
-            pr.join(timeout=60)
-            if pr.is_alive():
-                pr.kill()
-    bad = [pr.exitcode for pr in procs if pr.exitcode != 0]
-    if bad:
-        raise AssertionError(f"phase 12 world {world} {backend}: rank exit "
-                             f"codes {[pr.exitcode for pr in procs]}")
+    got = run_world(world, device, phase12_rank, hw, backend=backend)
     rows = []
     for i, r0 in enumerate(got[0]):
         n = int(np.prod(PAR_CASES[i][1]))
@@ -4208,10 +4196,15 @@ def parallel_workload(TC, dev, trained) -> dict:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB before the "
         "many-rank worlds start")
     res["b"] = many_rank_world(4, "gloo", "cuda:0")
+    # the collectives each case's first step issued (rank 0), for phase
+    # 14 (f); not part of the logged results
+    res["records"] = {r["case"]: r.pop("collectives") for r in res["b"]}
     count = torch.cuda.device_count()
     if count >= 2:
         n = min(4, count)
         res["c"] = many_rank_world(n, "nccl", None)
+        for r in res["c"]:
+            r.pop("collectives")
         dp = next(r for r in res["c"] if r["case"].startswith("dp"))
         ranks = len(dp["step_ms_by_rank"])
         res["c_dp_frames_per_s"] = sum(
@@ -4221,7 +4214,6 @@ def parallel_workload(TC, dev, trained) -> dict:
     else:
         log(f"[par] (c) skipped: {count} card on this host (NCCL takes one "
             "rank per card)")
-    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
     return res
 
 
@@ -4500,14 +4492,12 @@ def cli_profile(dev, res, trained) -> None:
 
 
 def cli_refusals(res) -> None:
-    """Phase 13 (e): ``bench`` and ``simclutter --dp 2`` exit with their
-    messages, before any work."""
+    """Phase 13 (e): ``bench`` exits with its message, before any work
+    (the multi-device flags' refusals are phase 14 (c))."""
     from onet_tpu_torch.run import main
 
     said = {}
-    for argv, word in ((["bench"], "benchmark"),
-                       (["simclutter", "--dp", "2", "--device", "cuda"],
-                        "Queue A item 7")):
+    for argv, word in ((["bench"], "benchmark"),):
         try:
             main(argv)
         except SystemExit as e:
@@ -4542,6 +4532,485 @@ def cli_workload(TC, dev, trained) -> dict:
             cli_refusals(res)
     finally:
         shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the multi-device flags through the launcher, int8 training on a
+# mesh, the NVLink projection
+# ---------------------------------------------------------------------------
+
+PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "chip_smoke_phase14")
+CLI_PAR_FRAMES = 30              # frames a level: 3 levels -> 81 / 9 frames
+CLI_PAR_EPOCHS = 2
+SERVE_PAR_FRAMES = 10            # a batch of 8 and a ragged one of 2
+# (record name, mode, mesh shape, axis names, int8 level) of (e): bf16 at
+# 512^2, base 64, 2 frames a data shard
+INT8_PAR_CASES = (("int8 fwd+dx (2, 1)", "dp", (2, 1), ("data", "space"),
+                   "fwd+dx"),
+                  ("int8 fwd (1, 2)", "spatial", (1, 2), ("data", "space"),
+                   "fwd"))
+INT8_PAR_LAUNCHES = {"fwd+dx": Q_STEP_FWD + Q_STEP_DX, "fwd": Q_STEP_FWD}
+
+
+def _cli_par_argv(out_root: str, *flags, device: str = "cuda") -> list:
+    """``run simclutter`` at full width (base 64, 224^2, batch 10, bf16),
+    CLI_PAR_FRAMES frames a level generated on the card, CLI_PAR_EPOCHS
+    epochs, into ``out_root``."""
+    import yaml
+
+    from onet_tpu_torch.core.config import DEFAULT_CONFIG
+    with open(DEFAULT_CONFIG) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["Rayleigh"].update(input_sz=SIM_CROP, batch_sz=SIM_BATCH,
+                           epoch_nums=CLI_PAR_EPOCHS, out_root=out_root,
+                           dataset_root=os.path.join(PHASE14_DIR, "none"))
+    yml = out_root + ".yml"
+    with open(yml, "w") as fh:
+        fh.write(yaml.safe_dump(cfg))
+    return ["simclutter", "--config", yml, "--base-channels", str(SIM_BASE),
+            "--frames-per-level", str(CLI_PAR_FRAMES), "--device", device,
+            *flags]
+
+
+def _cli_sim(argv, wp: bool) -> dict:
+    """``run.main(argv)`` with the pair-packed layout ``wp``; the driver's
+    history and the pair-packed kernels' launches."""
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.ops import conv_wp as TC
+    from onet_tpu_torch.run import main
+    from onet_tpu_torch.train import simclutter as S
+
+    real, hist = S.train, []
+
+    def train(*a, **k):
+        out = real(*a, **k)
+        hist.append(out[2])
+        return out
+
+    S.train = train
+    try:
+        with pair_pack(O, wp):
+            torch.cuda.synchronize()
+            reset_counts(TC)
+            main(argv)
+            torch.cuda.synchronize()
+            launches = launch_counts(TC)
+    finally:
+        S.train = real
+    return {"hist": hist[0], "launches": launches}
+
+
+def phase14_rank(jobs) -> list:
+    """A rank that ``parallel/launch.py::run_world`` started: each job
+    (argv, pair-packed) as the command line's own ranks run it."""
+    return [_cli_sim(argv, wp) for argv, wp in jobs]
+
+
+def _checkpoints(out_root: str) -> list:
+    import glob
+    return sorted(glob.glob(os.path.join(out_root, "*_epoch_*.npz")))
+
+
+def _same_checkpoints(a: str, b: str) -> bool:
+    pa, pb = _checkpoints(a), _checkpoints(b)
+    if not pa or len(pa) != len(pb):
+        return False
+    for x, y in zip(pa, pb):
+        with np.load(x) as za, np.load(y) as zb:
+            if sorted(za.files) != sorted(zb.files) or not all(
+                    np.array_equal(za[k], zb[k]) for k in za.files):
+                return False
+    return True
+
+
+def cli_par_launcher(res, dev) -> str:
+    """Phase 14 (a) and (b): ``run simclutter`` with ``--dp 1`` (pair-
+    packed), ``--sp 1`` and ``--sp 1x1`` (the halo step) in a one-rank
+    NCCL world started by ``parallel/launch.py``, each against the same
+    command without the flag in this process: (a) bit-equal loss history,
+    evals and checkpoints, launches equal to the steps x 6/1/4 and eval
+    forwards x 2/1/0; (b) the halo step's losses within phase 4's bf16
+    tolerance (1e-2) of the plain stacked command's, no pair-packed
+    launch. ``--sp 1x1`` builds ``--sp 1``'s mesh (run.py adds the
+    ``spacew`` axis only for more than one column, as the JAX package's
+    does): it holds the parser's RxC form, not the column halos, which
+    need two ranks (the CPU tests' ``--sp 1x2``). Returns (a)'s
+    checkpoint directory."""
+    from onet_tpu_torch.data.arrays import num_batches
+    from onet_tpu_torch.parallel.launch import run_world
+    from onet_tpu_torch.train.simclutter import SimclutterConfig
+
+    roots = {k: os.path.join(PHASE14_DIR, k)
+             for k in ("wp", "dp1", "stacked", "sp1", "sp1x1")}
+    argv = functools.partial(_cli_par_argv, device=dev.type)
+    t0 = time.perf_counter()
+    ref = {"wp": _cli_sim(argv(roots["wp"]), True),
+           "stacked": _cli_sim(argv(roots["stacked"]), False)}
+    ref_s = time.perf_counter() - t0
+    jobs = [(argv(roots["dp1"], "--dp", "1"), True),
+            (argv(roots["sp1"], "--sp", "1"), False),
+            (argv(roots["sp1x1"], "--sp", "1x1"), False)]
+    t0 = time.perf_counter()
+    got = dict(zip(("dp1", "sp1", "sp1x1"),
+                   run_world(1, dev.type, phase14_rank, jobs)[0]))
+    world_s = time.perf_counter() - t0
+    n = len(SIM_LEVELS) * CLI_PAR_FRAMES
+    n_train = int(n * 0.9)
+    every = SimclutterConfig.eval_every
+    evals = sum(e % every == 0 or e == CLI_PAR_EPOCHS - 1
+                for e in range(CLI_PAR_EPOCHS))
+    want = expect(evals * num_batches(n - n_train, SIM_BATCH),
+                  CLI_PAR_EPOCHS * num_batches(n_train, SIM_BATCH))
+    a, b = ref["wp"], got["dp1"]
+    same_hist = a["hist"] == b["hist"]
+    same = same_hist and _same_checkpoints(roots["wp"], roots["dp1"])
+    log(f"[cli-par] (a) simclutter --dp 1 through the launcher (one-rank "
+        f"NCCL world), base {SIM_BASE} {SIM_CROP}^2 batch {SIM_BATCH} bf16 "
+        f"pair-packed, {CLI_PAR_EPOCHS} epochs: losses {b['hist']['loss']}"
+        f" (without --dp {a['hist']['loss']}); history bit-equal "
+        f"{same_hist}, and checkpoints {same}; launches {b['launches']} "
+        f"(without --dp {a['launches']}, expected {want})")
+    if not same or b["launches"] != want or a["launches"] != want:
+        raise AssertionError("phase 14 (a): --dp 1 differs from the plain "
+                             "command or its launches are off")
+    zero = {k: 0 for k in want}
+    for key in ("sp1", "sp1x1"):
+        h, base = got[key]["hist"], ref["stacked"]["hist"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(h["loss"],
+                                                      base["loss"]))
+        log(f"[cli-par] (b) simclutter --sp {key[2:]} (halo step): losses "
+            f"{h['loss']} against the plain stacked command's "
+            f"{base['loss']}, largest relative {rel:.3e}; pair-packed "
+            f"launches {got[key]['launches']}")
+        if not rel <= 1e-2 or got[key]["launches"] != zero or \
+                len(h["loss"]) != CLI_PAR_EPOCHS:
+            raise AssertionError(f"phase 14 (b) --sp {key[2:]}")
+        res[f"sp_{key[2:]}_loss_rel"] = rel
+    res["a"] = dict(losses=b["hist"]["loss"], launches=b["launches"],
+                    bit_equal=same, expected=want)
+    res["a_b_reference_s"], res["a_b_world_s"] = ref_s, world_s
+    log(f"[cli-par] (a)+(b): the two commands in this process {ref_s:.1f} "
+        f"s, the one-rank world's three {world_s:.1f} s (its start "
+        "included)")
+    return roots["wp"]
+
+
+def cli_par_refusals(res) -> None:
+    """Phase 14 (c): on a one-card host ``--dp 2``, ``--pp 2`` and ``--sp
+    2`` exit with JAX's device-count message and start no rank; with two
+    or more cards each runs over NCCL."""
+    from onet_tpu_torch.parallel import launch
+    from onet_tpu_torch.run import main
+
+    count = torch.cuda.device_count()
+    cases = ((["--dp", "2"], f"--dp 2 but only {count} devices visible"),
+             (["--pp", "2"], f"--pp with --dp 1 needs 2 devices, only "
+                             f"{count} visible"),
+             (["--sp", "2"], f"--sp 2 with --dp 1 needs 2 devices, only "
+                             f"{count} visible"))
+    if count >= 2:
+        for flags, _ in cases:
+            out = os.path.join(PHASE14_DIR, "multi" + flags[0][2:])
+            t0 = time.perf_counter()
+            main(_cli_par_argv(out, *flags))
+            log(f"[cli-par] (c) simclutter {' '.join(flags)} over NCCL on "
+                f"{count} cards: {time.perf_counter() - t0:.1f} s, "
+                f"checkpoints {len(_checkpoints(out))}")
+        res["c"] = f"ran on {count} cards"
+        return
+    real = launch.run_world
+
+    def refuse(*a, **k):
+        raise AssertionError("phase 14 (c): a rank was started")
+
+    launch.run_world, said = refuse, []
+    try:
+        for flags, msg in cases:
+            try:
+                main(_cli_par_argv(os.path.join(PHASE14_DIR, "refused"),
+                                   *flags))
+            except SystemExit as e:
+                said.append(str(e))
+            if said[-1:] != [msg]:
+                raise AssertionError(f"phase 14 (c) {flags}: {said[-1:]}")
+    finally:
+        launch.run_world = real
+    log(f"[cli-par] (c) one card: {said}; no rank started; multi-card runs "
+        f"not run: {count} card(s)")
+    res["c"] = said
+
+
+def cli_par_serve(TC, res, dev, ckpt_dir: str) -> list:
+    """Phase 14 (d): ``serve --dp 1`` on SERVE_PAR_FRAMES frames at 512^2
+    in batches of 8 (the ragged tail padded by the serving loop), without
+    and with ``--http`` (its daemon given the same ``--input``, so it warms
+    at 512^2 and the request is timed warm), masks equal to ``serve``'s
+    and launches counted, 2/1 a batch. Returns the collectives ``serve
+    --dp`` issued (none)."""
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.parallel.collectives import record
+    from onet_tpu_torch.run import main
+
+    ckpt = _checkpoints(ckpt_dir)[-1]
+    x = frames(SERVE_PAR_FRAMES, SEED + 140)
+    inp = os.path.join(PHASE14_DIR, "serve_frames.npz")
+    np.savez(inp, imgs=x)
+    batches = -(-SERVE_PAR_FRAMES // 8)
+    want = {k: 0 for k in launch_counts(TC)}
+    want.update({k: v * batches for k, v in SERVE_LAUNCHES.items()})
+    masks, launches = {}, {}
+    with pair_pack(O, True):
+        for tag, flags in (("serve", []), ("dp1", ["--dp", "1"])):
+            out = os.path.join(PHASE14_DIR, f"masks_{tag}.npz")
+            torch.cuda.synchronize()
+            reset_counts(TC)
+            with record() as cols:
+                main(["serve", "--model", ckpt, "--input", inp,
+                      "--serve-batch", "8", "--out", out, "--device",
+                      dev.type] + flags)
+            torch.cuda.synchronize()
+            launches[tag] = launch_counts(TC)
+            with np.load(out) as z:
+                masks[tag] = z["masks"]
+        http, http_launches, ms = _cli_serve(
+            ["serve", "--model", ckpt, "--input", inp, "--serve-batch",
+             "8", "--http", "0", "--http-requests", "1", "--dp", "1",
+             "--device", dev.type],
+            1, x, TC)
+    same = bool(np.array_equal(masks["dp1"], masks["serve"]))
+    same_http = bool(np.array_equal(http[0], masks["serve"]))
+    log(f"[cli-par] (d) serve --dp 1, {SERVE_PAR_FRAMES} frames at "
+        f"{H}x{W} in batches of 8: masks equal to serve's {same}, launches "
+        f"{launches['dp1']} (serve {launches['serve']}, expected {want}); "
+        f"with --http one request {ms[0]:.2f} ms, masks equal {same_http},"
+        f" launches {http_launches}; collectives issued {len(cols)}")
+    if not (same and same_http) or launches["dp1"] != want or \
+            launches["serve"] != want or http_launches != want or cols:
+        raise AssertionError("phase 14 (d): serve --dp 1 differs")
+    res["d"] = dict(masks_equal=same, http_masks_equal=same_http,
+                    launches=launches["dp1"], http_launches=http_launches,
+                    http_request_ms=ms[0])
+    return cols
+
+
+def _int8_par_case(case, dev, hw: int) -> dict:
+    """One case of (e) on this rank: the first conv's codes and scale,
+    one step's int8 launches (each held to its plain version), the loss
+    and gradient and the collectives noted; rank 0 also the one-process
+    int8 step on the global batch."""
+    import torch.distributed as dist
+    from onet_tpu_torch.core.mesh import make_mesh
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models import onet as O
+    from onet_tpu_torch.models import qtrain as Q
+    from onet_tpu_torch.ops import conv_i8 as CI
+    from onet_tpu_torch.parallel.collectives import record
+    from onet_tpu_torch.train.optim import adam_init
+    from onet_tpu_torch.train.steps import make_train_step
+
+    name, mode, shape, names, level = case
+    mesh = make_mesh(shape, names, ranks=list(range(int(np.prod(shape)))))
+    if mesh is None:
+        return None
+    gen = torch.Generator().manual_seed(SEED + 20)
+    params0, state0 = O.onet_init(gen, 1, base=64, device=dev)
+    batch = 2 * mesh.shape.get("data", 1)
+    x = torch.from_numpy(frames(batch, SEED + 150)[:, :hw, :hw]).to(dev)
+    if mode == "dp":
+        x[batch // 2:] *= 3.0        # the data shards' maxima 3x apart
+    else:
+        x[:, hw // 2:] *= 3.0        # the row blocks' maxima 3x apart
+    real = Q._quant_act
+
+    def run(mesh_, *, launches: bool):
+        first = []
+
+        def quant(*a, **k):
+            q, sc = real(*a, **k)
+            if not first:
+                first.append((q.cpu().numpy(), sc.cpu().numpy()))
+            return q, sc
+
+        step = make_train_step(mesh=mesh_, spatial=mode == "spatial",
+                               quantized=level, policy=BF16_COMPUTE)
+        Q._quant_act = quant
+        try:
+            p, s = _clone(params0), _clone(state0)
+            torch.cuda.synchronize()
+            i8_reset(CI)
+            ops = []
+            with record() as cols:
+                if launches:
+                    ops = i8_operands(CI, lambda: step(
+                        p, s, adam_init(params0), x, LR))
+                else:
+                    step(p, s, adam_init(params0), x, LR)
+            torch.cuda.synchronize()
+            count = i8_counts(CI)["conv3x3_i8"]
+            v, _, g = step.loss_and_grads(_clone(params0), _clone(state0),
+                                          x)
+        finally:
+            Q._quant_act = real
+        errs = [i8_check(CI, op, f"(e) {name} launch {i}")
+                for i, op in enumerate(ops)]
+        del ops
+        return dict(codes=first[0][0], sx=first[0][1], launches=count,
+                    loss=float(v), grad=_flat(g).cpu(), cols=cols,
+                    max_err=max(errs, default=0.0))
+
+    def moved_grad():
+        """The one-process step's gradient with its first activation
+        scale one ulp up."""
+        seen = []
+
+        def quant(x, axis=None):
+            if seen:
+                return real(x, axis)
+            seen.append(1)
+            xf = x.float()
+            sc = torch.nextafter(torch.clamp_min(
+                Q.div(torch.amax(torch.abs(xf)), Q.QMAX), 1e-12),
+                torch.tensor(float("inf"), device=xf.device))
+            q = torch.clamp(torch.round(xf / sc), -Q.QMAX, Q.QMAX)
+            return q.to(torch.int8), sc
+
+        step = make_train_step(quantized=level, policy=BF16_COMPUTE)
+        Q._quant_act = quant
+        try:
+            _, _, g = step.loss_and_grads(_clone(params0), _clone(state0), x)
+        finally:
+            Q._quant_act = real
+        return _flat(g).cpu()
+
+    torch.cuda.empty_cache()
+    out = run(mesh, launches=True)
+    out.update(name=name, coords=mesh.coords)
+    grad = out.pop("grad")
+    torch.cuda.empty_cache()
+    dist.barrier(group=mesh.world.group)
+    if mesh.rank == 0:
+        ref = run(None, launches=False)
+        cos = [float(a @ grad / (a.norm() * grad.norm()))
+               for a in (ref["grad"], moved_grad())]
+        out.update(ref_codes=ref["codes"], ref_sx=ref["sx"],
+                   ref_loss=ref["loss"], grad_cos=cos[0],
+                   grad_cos_moved=cos[1])
+    else:
+        out.pop("cols")
+    dist.barrier(group=mesh.world.group)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14_int8_rank(hw: int) -> list:
+    """A rank of (e)'s gloo world: both cases."""
+    from onet_tpu_torch.parallel import launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_int8_par_case(c, launch.device(), hw) for c in INT8_PAR_CASES]
+
+
+def int8_on_a_mesh(res, dev, hw: int = H) -> dict:
+    """Phase 14 (e): a gloo world of 2 processes sharing the card
+    (``parallel/launch.py::run_world``), int8 training at 512^2, bf16,
+    base 64, 2 frames a data shard: data (2, 1) with "fwd+dx" and spatial
+    (1, 2) with "fwd", each against the one-process int8 step on the
+    global batch: the first conv's scale and codes (on each rank's block,
+    halo rows zero-padded at the edges) bit-equal, the first step's loss
+    within 1e-4 relative and its gradient at cosine > 0.9999 to the nearer
+    of the one-process step's and that step's with its first activation
+    scale one ulp up (a code flip that another summation order of the
+    BatchNorm sums can take, tests/test_torch_parallel.py); the int8
+    launches a step asserted and each held to its plain version (int32
+    sums and codes bit-equal, as phase 10). Returns {case: collectives}."""
+    from onet_tpu_torch.parallel.launch import run_world
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    ranks = run_world(2, "cuda:0" if dev.type == "cuda" else "cpu",
+                      phase14_int8_rank, hw, backend="gloo")
+    wall = time.perf_counter() - t0
+    records = {}
+    for i, (name, mode, shape, names, level) in enumerate(INT8_PAR_CASES):
+        r0 = ranks[0][i]
+        ok_codes = True
+        for r in (0, 1):
+            o = ranks[r][i]
+            want = r0["ref_codes"]
+            if mode == "dp":
+                want = want[2 * r:2 * r + 2]
+            else:
+                h = hw // 2
+                pad = np.pad(want, ((0, 0), (1, 1), (0, 0), (0, 0)))
+                want = pad[:, o["coords"]["space"] * h:][:, :h + 2]
+            ok_codes &= bool(np.array_equal(o["codes"], want)
+                             and np.array_equal(o["sx"], r0["ref_sx"]))
+        rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        per = INT8_PAR_LAUNCHES[level]
+        launches = [ranks[r][i]["launches"] for r in (0, 1)]
+        err = max(ranks[r][i]["max_err"] for r in (0, 1))
+        log(f"[cli-par] (e) {name}: first conv's scale {float(r0['sx']):.6e}"
+            f" and codes bit-equal to the one-process step's {ok_codes}; "
+            f"loss {r0['loss']:.6f} against {r0['ref_loss']:.6f} (relative "
+            f"{rel:.2e}); gradient cosine {r0['grad_cos']:.6f} (to the "
+            f"moved step {r0['grad_cos_moved']:.6f}); conv_i8 "
+            f"launches a step {launches} (expected {per}), each bit-equal "
+            f"to its plain version (largest f32 output error {err:.2e})")
+        near = max(r0["grad_cos"], r0["grad_cos_moved"])
+        if not (ok_codes and rel <= 1e-4 and near > 0.9999
+                and launches == [per, per]):
+            raise AssertionError(f"phase 14 (e) {name}")
+        records[name] = r0["cols"]
+        res.setdefault("e", {})[name] = dict(
+            loss_rel=rel, grad_cos=r0["grad_cos"],
+            grad_cos_moved=r0["grad_cos_moved"], launches=launches,
+            max_err=err, codes_bit_equal=ok_codes)
+    res["e_s"] = wall
+    log(f"[cli-par] (e) the world of 2 processes took {wall:.1f} s")
+    return records
+
+
+def cli_par_projection(res, records: dict, times: dict, card: str) -> None:
+    """Phase 14 (f): ``runs/project_nvlink.py``'s table from the
+    collectives recorded here (phase 12 (b)'s float32 steps and (e)'s
+    bf16 int8 steps, 2 frames a data shard, 512^2, base 64; ``serve
+    --dp``'s none), carried to 8 cards and 8 frames a data shard: the
+    batch-independent payloads (gradients, BatchNorm sums and state, the
+    int8 scales' max) as recorded, every other payload times 4 for the
+    frames and times 2 / (recorded bytes per element) for bf16; groups
+    over the 8-card mesh's axes. t_compute: this run's one-card times."""
+    from onet_tpu_torch.runs.project_nvlink import project, table
+
+    rows = project(records, times)
+    for line in table(rows, card):
+        log("[cli-par] (f) " + line)
+    res["f"] = {k: {"proj": v["proj"], "basis": v["basis"],
+                    "collectives": v["collectives"]}
+                for k, v in rows.items()}
+
+
+def cli_parallel_workload(TC, dev, records: dict, times: dict,
+                          card: str) -> dict:
+    """Phase 14: (a)-(b) the launcher's one-rank world, (c) the card-count
+    refusals (or multi-card runs), (d) ``serve --dp 1``, (e) int8 training
+    on a gloo world of 2, (f) the NVLink projection."""
+    res = {}
+    os.makedirs(PHASE14_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ckpt_dir = cli_par_launcher(res, dev)
+        torch.cuda.empty_cache()
+        cli_par_refusals(res)
+        served = cli_par_serve(TC, res, dev, ckpt_dir)
+        res["ab_d_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        records = dict(records, **int8_on_a_mesh(res, dev), serve=served)
+        cli_par_projection(res, records, times, card)
+    finally:
+        shutil.rmtree(PHASE14_DIR, ignore_errors=True)
     return res
 
 
@@ -4694,6 +5163,7 @@ def main() -> int:
     t0 = time.perf_counter()
     par = parallel_workload(TC, dev, trained)
     par["phase_s"] = time.perf_counter() - t0
+    par_records = par.pop("records")
     log("[parallel] " + json.dumps(par))
     log(f"[phase12] phase took {par['phase_s']:.1f} s")
     torch.cuda.empty_cache()
@@ -4702,6 +5172,16 @@ def main() -> int:
     cli["phase_s"] = time.perf_counter() - t0
     log("[cli] " + json.dumps(cli))
     log(f"[phase13] phase took {cli['phase_s']:.1f} s on {card}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one_card_s = {"train": trained["train_b8_wp_step_ms"] / 1e3,
+                  "train_fwd": q8["train_step_ms"]["fwd"] / 1e3,
+                  "train_fwd+dx": q8["train_step_ms"]["fwd+dx"] / 1e3,
+                  "infer": served["b8_wp_step_ms"] / 1e3}
+    cpar = cli_parallel_workload(TC, dev, par_records, one_card_s, card)
+    cpar["phase_s"] = time.perf_counter() - t0
+    log("[cli-par] " + json.dumps(cpar))
+    log(f"[phase14] phase took {cpar['phase_s']:.1f} s on {card}")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -4814,6 +5294,21 @@ def main() -> int:
             row["reproduce_launches"] = cli_launches[row["name"]]
     for row in rows[:len(KERNELS)]:
         row["cli_serve_launches"] = cli["serve"]["launches"][row["name"]]
+    # phase 14's launches: run simclutter --dp 1 through the launcher (its
+    # steps and eval forwards) and serve --dp 1's batches
+    dl = cpar["a"]["launches"]
+    dp_launches = {"conv3x3_wp+stats": dl["conv3x3_wp+stats"],
+                   "conv3x3_wp2+stats": dl["conv3x3_wp2+stats"],
+                   "conv3x3_wp+dx": dl["conv3x3_wp"] - dl["conv3x3_wp+stats"],
+                   "conv3x3_wp_dw": dl["conv3x3_wp_dw"]}
+    for row in rows:
+        if row["name"] in dp_launches:
+            row["cli_dp1_launches"] = dp_launches[row["name"]]
+        if row["name"] == "conv3x3_i8":
+            row["mesh_int8_launches_per_step"] = {
+                k: v["launches"] for k, v in cpar["e"].items()}
+    for row in rows[:len(KERNELS)]:
+        row["cli_serve_dp1_launches"] = cpar["d"]["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,8 +34,10 @@ _CLI_FLAGS = (
 
 
 def _device_name() -> str:
-    """The device the entry points default to: "cuda" with a card, else
-    "cpu" (the reference's ``torch.cuda.is_available()`` test)."""
+    """Which device is present: "cuda" with a card, else "cpu" (the
+    reference's ``torch.cuda.is_available()`` test). It only reports: the
+    entry points default to the card and raise without one
+    (``core/device.py``)."""
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 

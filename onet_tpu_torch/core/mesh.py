@@ -41,10 +41,13 @@ class Axis:
     """A set of mesh axes seen from this rank: the ``size`` ranks that
     share this rank's coordinates on every other axis, in row-major order
     over the named axes (``ranks``, global ranks), this rank's position
-    among them (``index``) and their process group (None for one rank)."""
+    among them (``index``) and their process group (None for one rank).
+    ``names`` holds the axes of more than one rank, ``wanted`` every axis
+    asked for (what a collective over it spans on a larger mesh)."""
 
-    def __init__(self, names, ranks, index, group):
+    def __init__(self, names, ranks, index, group, wanted):
         self.names = tuple(names)
+        self.wanted = tuple(wanted)
         self.ranks = list(ranks)
         self.size = len(self.ranks)
         self.index = index
@@ -87,7 +90,8 @@ class Mesh:
                      if n in names and self.shape[n] > 1)
         ranks = _sub_ranks(self, live)
         group = self._groups.get(live)
-        return Axis(live, ranks, ranks.index(self.rank), group)
+        return Axis(live, ranks, ranks.index(self.rank), group,
+                    wanted=tuple(names))
 
     @property
     def world(self) -> Axis:

@@ -184,7 +184,7 @@ def all_reduce_sums(axis, *sums):
     returns them in order."""
     from onet_tpu_torch.parallel.collectives import all_reduce_
     flat = torch.cat([t.reshape(-1) for t in sums])
-    all_reduce_(flat, axis)
+    all_reduce_(flat, axis, name="bn_sums")
     out, off = [], 0
     for t in sums:
         out.append(flat[off:off + t.numel()].view_as(t))

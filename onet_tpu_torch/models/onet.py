@@ -278,7 +278,8 @@ def roll_batch(t: torch.Tensor, batch_axis=None) -> torch.Tensor:
     from onet_tpu_torch.parallel.collectives import ppermute
     n = batch_axis.size
     prev_last = ppermute(t[-1:], batch_axis,
-                         [(i, (i + 1) % n) for i in range(n)])
+                         [(i, (i + 1) % n) for i in range(n)],
+                         name="rsn_roll")
     return torch.cat([prev_last, t[:-1]], dim=0)
 
 

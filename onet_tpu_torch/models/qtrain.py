@@ -21,6 +21,14 @@ Accuracy contract, as the JAX package's: opt-in, gated on mask agreement
 of the trained model against an exactly trained one from the same
 init and data (``tests/test_torch_qtrain.py``).
 
+Under a mesh the activation scales are global, as in the JAX package,
+whose jitted step takes ``_quant_act``'s max over the whole sharded batch:
+the max runs through a MAX all-reduce over the axes the step shards, the
+BatchNorm axes that ``train/steps.py::make_loss_and_grads`` sets
+(``models/layers.py::bn_axis``: ``data``, and ``space`` / ``spacew`` on
+the halo step). The forward reads them when it runs and keeps them for
+the backward's dy scale.
+
 Scales divide by tensors, never by a Python scalar (PyTorch's CUDA
 kernels multiply by a scalar divisor's reciprocal). The first conv's
 input needs no gradient, so its dx conv is not run (the JAX package's is
@@ -32,18 +40,25 @@ from __future__ import annotations
 import types
 
 import torch
+import torch.distributed as dist
 
 from onet_tpu_torch.core.policy import Policy, DEFAULT
 from onet_tpu_torch.models import layers as L
 from onet_tpu_torch.ops.conv_i8 import QMAX, conv3x3_i8
 from onet_tpu_torch.ops.math import div
+from onet_tpu_torch.parallel.collectives import all_reduce_
 
 
-def _quant_act(x):
+def _quant_act(x, axis=None):
     """Dynamic per-tensor symmetric int8: returns (codes, scale), the
-    scale a 0-d f32 tensor."""
+    scale a 0-d f32 tensor. ``axis``: the mesh axis the tensor is sharded
+    over; its max is taken over the whole of it."""
     xf = x.float()
-    s = torch.clamp_min(div(torch.amax(torch.abs(xf)), QMAX), 1e-12)
+    amax = torch.amax(torch.abs(xf))
+    if axis is not None:
+        amax = all_reduce_(amax.contiguous(), axis, op=dist.ReduceOp.MAX,
+                           name="quant_max")
+    s = torch.clamp_min(div(amax, QMAX), 1e-12)
     q = torch.clamp(torch.round(xf / s), -QMAX, QMAX)
     return q.to(torch.int8), s
 
@@ -73,11 +88,13 @@ class _ConvQ(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, compute_dtype, dx_int8):
-        xq, sx = _quant_act(x)
+        axis = L.current_bn_axis()
+        xq, sx = _quant_act(x, axis)
         wq, sw = _quant_w_oc(w)
         y = conv3x3_i8(xq, wq, sx * sw)
         ctx.save_for_backward(xq, sx, wq, sw)
         ctx.compute_dtype, ctx.dx_int8 = compute_dtype, dx_int8
+        ctx.axis = axis
         return y.to(compute_dtype)
 
     @staticmethod
@@ -98,7 +115,7 @@ class _ConvQ(torch.autograd.Function):
                 # weight codes' per-output-channel scale folded into dy,
                 # then one int8 conv
                 wtq = wq.flip(0, 1).permute(0, 1, 3, 2)
-                dyq2, sdy2 = _quant_act(dyf.float() * sw)
+                dyq2, sdy2 = _quant_act(dyf.float() * sw, ctx.axis)
                 dx = conv3x3_i8(dyq2, wtq, sdy2.expand(wq.shape[2])
                                 .contiguous())
             else:

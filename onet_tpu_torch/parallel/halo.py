@@ -16,6 +16,12 @@ Each rank holds a contiguous block of image rows (``space``) and, on a
   local extents, ``validate_spatial_shapes``).
 * BatchNorm reduces its sums over ``data``, ``space`` (and ``spacew``):
   full-batch statistics (``models/layers.py::bn_axis``).
+* int8 training (``quantized``): the conv is ``models/qtrain.py``'s int8
+  conv on the same halo-padded block, its activation scale the max over
+  ``data``, ``space`` and ``spacew`` (zero rows do not move a max), so
+  each rank's codes are the one-device step's. That conv pads SAME; the
+  rows and columns it computes beyond the VALID extent are cut off, and
+  its straight-through backward, on a dy zero there, is the VALID conv's.
 
 The backward is exact too: ``ppermute``'s transpose sends each halo's
 cotangent back to the rank the row came from. The JAX package's other
@@ -47,16 +53,21 @@ def _exchange_halos(x, axis, dim: int):
         return F.pad(x, pad)
     first = x.narrow(dim, 0, 1)
     last = x.narrow(dim, x.shape[dim] - 1, 1)
-    before = ppermute(last, axis, [(i, i + 1) for i in range(n - 1)])
-    after = ppermute(first, axis, [(i + 1, i) for i in range(n - 1)])
+    before = ppermute(last, axis, [(i, i + 1) for i in range(n - 1)],
+                      name="halo")
+    after = ppermute(first, axis, [(i + 1, i) for i in range(n - 1)],
+                     name="halo")
     return torch.cat([before, x, after], dim=dim)
 
 
-def make_halo_ops(n_space: int, n_spacew: int = 1, *, mesh=None):
+def make_halo_ops(n_space: int, n_spacew: int = 1, *, mesh=None,
+                  quantized: str = None):
     """Layer-op namespace for ``onet_forward(..., ops=...)`` on this rank's
     block. ``mesh`` (``core/mesh.py``) supplies the axes; without one
     (or with ``n_space = n_spacew = 1``) the ops are the single-device
-    layers. BatchNorm reduces over ``data``, ``space`` and ``spacew``."""
+    layers. BatchNorm reduces over ``data``, ``space`` and ``spacew``.
+    ``quantized`` ("fwd" / "fwd+dx"): the convs in int8
+    (``models/qtrain.py``)."""
     if mesh is not None:
         if mesh.shape.get(SPACE_AXIS, 1) != n_space or \
                 mesh.shape.get(SPACEW_AXIS, 1) != n_spacew:
@@ -67,6 +78,11 @@ def make_halo_ops(n_space: int, n_spacew: int = 1, *, mesh=None):
     bn_ax = None if mesh is None else mesh.axis(
         (DATA_AXIS, SPACE_AXIS, SPACEW_AXIS))
 
+    qconv = None
+    if quantized:
+        from onet_tpu_torch.models.qtrain import make_qtrain_ops
+        qconv = make_qtrain_ops(level=quantized).conv3x3
+
     def conv3x3(x, w, *, policy: Policy = DEFAULT):
         xp = _exchange_halos(x, row, 1)
         if n_spacew > 1:
@@ -74,6 +90,10 @@ def make_halo_ops(n_space: int, n_spacew: int = 1, *, mesh=None):
             pad_w = 0                        # W covered by halos too
         else:
             pad_w = 1                        # W SAME
+        if qconv is not None:
+            y = qconv(xp, w, policy=policy)  # SAME: cut to VALID
+            y = y[:, 1:-1]
+            return (y[:, :, 1:-1] if pad_w == 0 else y).contiguous()
         y = F.conv2d(L._nchw(policy.cast_compute(xp)),
                      policy.cast_compute(w).permute(3, 2, 0, 1),
                      padding=(0, pad_w))     # H covered by halos
@@ -111,19 +131,20 @@ def validate_spatial_shapes(h: int, n_space: int, levels: int = 4,
 
 def make_spatial_train_step(mesh, *, policy: Policy = DEFAULT,
                             bias: float = 0.0, loss: str = "jsd",
-                            microbatches: int = 1):
+                            microbatches: int = 1, quantized: str = None):
     """The train step with the batch over ``data`` and image rows over
     ``space`` (columns over ``spacew`` where the mesh has it): exact
     gradients by halo exchange. Signature of train.steps.make_train_step's
     steps: (params, bn_state, opt_state, x, lr) on the global batch. The
     twin branches take ``onet_forward``'s default layout, as the
-    data-parallel step's do."""
+    data-parallel step's do. ``quantized``: int8 convs (``make_halo_ops``),
+    equal to the one-device int8 step on the global batch."""
     from onet_tpu_torch.train.steps import make_loss_and_grads, \
         onet_objective, with_adam
 
     n_space = int(mesh.shape.get(SPACE_AXIS, 1))
     n_spacew = int(mesh.shape.get(SPACEW_AXIS, 1))
-    ops = make_halo_ops(n_space, n_spacew, mesh=mesh)
+    ops = make_halo_ops(n_space, n_spacew, mesh=mesh, quantized=quantized)
 
     def check(x):
         validate_spatial_shapes(x.shape[1], n_space, w=x.shape[2],

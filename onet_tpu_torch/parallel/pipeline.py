@@ -95,7 +95,7 @@ def _bn_tree_broadcast(state, keys, stage, src):
     sub = {k: state[k] for k in keys}
     leaves = tree_leaves(sub)
     flat = torch.cat([t.reshape(-1) for t in leaves])
-    broadcast_(flat, stage, src)
+    broadcast_(flat, stage, src, name="bn_state")
     out, off = [], 0
     for t in leaves:
         out.append(flat[off:off + t.numel()].view_as(t).clone())
@@ -156,7 +156,8 @@ def make_pp_train_step(mesh, *, microbatches: int, policy: Policy = DEFAULT,
                         payload = torch.zeros(sum(sizes), dtype=cdt,
                                               device=x.device,
                                               requires_grad=True)
-                    recv = ppermute(payload, stage, fwd)
+                    recv = ppermute(payload, stage, fwd,
+                                    name="stage_activations")
                     if not first:
                         feats = [t.view(sh) for t, sh in
                                  zip(recv.split(sizes), shapes)]
@@ -188,7 +189,7 @@ def make_pp_train_step(mesh, *, microbatches: int, policy: Policy = DEFAULT,
                     torch.stack([v.detach() for v in losses]).sum()
                     / m_count)
             flat = all_reduce_flat(gsum + [lacc.reshape(1)], world,
-                                   scale=1.0 / data.size)
+                                   scale=1.0 / data.size, name="grads")
             new_top = dict(bn)
             new_top.update(_bn_tree_broadcast(bn, _ENC_KEYS, stage, 0))
             new_top.update(_bn_tree_broadcast(bn, _DEC_KEYS, stage, 1))

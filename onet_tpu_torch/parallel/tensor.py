@@ -50,7 +50,8 @@ def _slice_vec_tree(d, ax):
 
 def _gather_vec_tree(d, ax):
     """Full-channel BatchNorm state from the ranks' slices."""
-    return {k: torch.cat(gather_parts(v, ax), dim=0) for k, v in d.items()}
+    return {k: torch.cat(gather_parts(v, ax, name="bn_state"), dim=0)
+            for k, v in d.items()}
 
 
 def _gather_ch(x, ax):

@@ -17,16 +17,25 @@ defaults:
 (installed as ``onet-tpu-torch``). Every subcommand takes ``--device``:
 the default runs on the card and raises without one; ``--device cpu``
 runs the kernels' plain versions on the CPU. Each subcommand calls the
-port's library for its workload in this one process.
+port's library for its workload.
+
+The multi-device flags: ``simclutter --dp/--pp/--sp`` and ``zy3 --dp``
+train on a mesh of one process a device (``parallel/launch.py``): under
+``torchrun`` each process joins its world, else the command spawns the
+ranks (NCCL on ``cuda:0..N-1``; gloo on the CPU, where any count runs).
+JAX's refusals come first, in JAX's order and with its messages, and a
+need above the card count exits before any rank starts. ``serve --dp N``
+runs in this one process over ``cuda:0..N-1``, the batch cut into N
+shards (no collective, as in JAX's ``shard_map``).
 
 Where the JAX package differs: ``export-artifact`` has no
 ``--platforms`` (the artifact is exported on the device that serves it,
-``serve/artifact.py``); ``bench`` and the multi-device flags ``--dp``,
-``--pp`` and ``--sp`` exit with a message naming the work that brings
-them; figures are drawn where matplotlib is installed
-(``report.can_draw``). Workloads fall back to device-synthesized data when
-the reference .pt files are not on disk, so every command runs out of the
-box.
+``serve/artifact.py``); ``bench`` exits with a message naming the work
+that brings it; the multi-device flags start processes where JAX's one
+process drives every device; figures are drawn where matplotlib is
+installed (``report.can_draw``). Workloads fall back to device-synthesized
+data when the reference .pt files are not on disk, so every command runs
+out of the box.
 """
 
 from __future__ import annotations
@@ -38,11 +47,6 @@ import numpy as np
 
 from onet_tpu_torch.core.config import DEFAULT_CONFIG
 
-PARALLEL_LATER = ("the port's command line runs in one process; starting "
-                  "the ranks for --dp, --pp and --sp is the next slice of "
-                  "the port (ROADMAP.md, Queue A item 7). Until then drive "
-                  "a mesh from a script: parallel/multihost.py::initialize "
-                  "under torchrun, one process a card")
 BENCH_LATER = ("bench: the port's benchmark comes in its own PR after "
                "ROADMAP.md's Queue A (a bench file beside bench.py, CUDA-"
                "event timing); bench.py itself is the JAX package's")
@@ -129,8 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
                                 "YAML does the same)")
             p.add_argument("--dp", type=int, default=0,
                            help="data-parallel training over N devices "
-                                "(the next slice of the port). 0 = single "
-                                "device")
+                                "(same mesh semantics as simclutter --dp; "
+                                "batch and frame counts must divide N). "
+                                "0 = single device")
             p.add_argument("--choose-preprocess", default=None,
                            metavar="SRC_DIR",
                            help="run the preprocessing-SELECTION workload "
@@ -267,16 +272,24 @@ def build_parser() -> argparse.ArgumentParser:
                            help="clutter family (reference bg_type: "
                                 "rayleigh.rvs or correlated K field)")
             p.add_argument("--dp", type=int, default=0,
-                           help="data-parallel over N devices (the next "
-                                "slice of the port). 0 = single device")
+                           help="data-parallel over N devices (one "
+                                "process a device; params replicated, "
+                                "batch sharded, gradient all-reduce). 0 = "
+                                "single device")
             p.add_argument("--pp", type=int, default=0, metavar="M",
-                           help="pipeline-parallel training with M "
-                                "microbatches (the next slice of the "
-                                "port). 0 = off")
+                           help="pipeline-parallel training: GPipe "
+                                "encoder|decoder stages over 2 devices with "
+                                "M microbatches (parallel/pipeline.py). "
+                                "Composes with --dp N (needs 2*N devices). "
+                                "0 = off")
             p.add_argument("--sp", default=None, metavar="R[xC]",
-                           help="spatially-partitioned training over R "
-                                "(x C) devices (the next slice of the "
-                                "port)")
+                           help="spatially-partitioned training: image "
+                                "rows shard over R devices (exact "
+                                "halo-exchange convs, parallel/halo.py); "
+                                "'RxC' also shards columns. Composes with "
+                                "--dp N (needs N*R*C devices); input size "
+                                "must divide 16*R (and 16*C). Exclusive "
+                                "with --pp")
             p.add_argument("--resume", action="store_true",
                            help="auto-resume from the newest checkpoint "
                                 "under out_root (params, BN state, Adam "
@@ -327,7 +340,9 @@ def build_parser() -> argparse.ArgumentParser:
                                 "(assign_fg_mark convention)")
             p.add_argument("--dp", type=int, default=0,
                            help="data-parallel serving over N devices "
-                                "(the next slice of the port). 0 = single "
+                                "(the model copied to each, the batch "
+                                "cut in N shards; composes with --int8/"
+                                "--far-budget/--tile/--http). 0 = single "
                                 "device")
             p.add_argument("--http", type=int, default=None, metavar="PORT",
                            help="stay resident and serve the warm step "
@@ -376,14 +391,109 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_parallel(args) -> None:
-    """--dp / --pp / --sp other than off: exit, never one device quietly."""
-    if getattr(args, "sp", None):
-        _parse_sp(args.sp)
-    for flag in ("dp", "pp", "sp"):
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: "
-                             + PARALLEL_LATER)
+def _in_world() -> bool:
+    """This process is a rank of an initialized world."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _need_devices(args, need: int, msg: str) -> None:
+    """Exit with ``msg`` (JAX's, its count left as ``{}``) when ``need``
+    ranks, one a device, do not fit the devices ``--device`` names."""
+    import torch
+
+    from onet_tpu_torch.parallel.launch import visible_devices
+
+    dev = torch.device("cuda" if args.device is None else args.device)
+    if dev.type == "cuda" and dev.index is not None and need > 1:
+        raise SystemExit(f"--device {args.device}: the ranks take one card "
+                         "each, cuda:0 up; pass --device cuda")
+    have = visible_devices(dev)
+    if have is not None and have < need:
+        raise SystemExit(msg.format(have))
+
+
+def _simclutter_mesh(args, cfg):
+    """The mesh of simclutter's --dp / --pp / --sp, after JAX's refusals in
+    JAX's order and the driver's own (which the JAX driver makes after
+    generating its data): None, or (ranks, shape, axis names, pipeline
+    microbatches, spatial)."""
+    from onet_tpu_torch.core.mesh import (DATA_AXIS, SPACE_AXIS,
+                                          SPACEW_AXIS, STAGE_AXIS)
+
+    if args.sp:
+        if args.pp:
+            raise SystemExit("--sp and --pp are exclusive")
+        rows, cols = _parse_sp(args.sp)
+        data = args.dp or 1
+        need = data * rows * cols
+        _need_devices(args, need, f"--sp {args.sp} with --dp {data} needs "
+                                  f"{need} devices, only {{}} visible")
+        if cfg.batch_sz % data:
+            raise SystemExit(f"batch {cfg.batch_sz} not divisible by "
+                             f"--dp {data}")
+        if cols > 1:
+            plan = (need, (data, rows, cols),
+                    (DATA_AXIS, SPACE_AXIS, SPACEW_AXIS), None, True)
+        else:
+            plan = (need, (data, rows), (DATA_AXIS, SPACE_AXIS), None, True)
+    elif args.pp:
+        data = args.dp or 1
+        need = 2 * data
+        _need_devices(args, need, f"--pp with --dp {data} needs {need} "
+                                  f"devices, only {{}} visible")
+        if not args.weight_share:
+            raise SystemExit("--pp supports weight-shared models only")
+        if args.int8_train:
+            raise SystemExit("--pp and --int8-train are exclusive")
+        if cfg.batch_sz % (args.pp * data):
+            raise SystemExit(
+                f"batch {cfg.batch_sz} not divisible into {args.pp} "
+                f"microbatches x {data} data shards (use --batch-sz)")
+        plan = (need, (data, 2), (DATA_AXIS, STAGE_AXIS), args.pp, False)
+    elif args.dp:
+        _need_devices(args, args.dp, f"--dp {args.dp} but only {{}} "
+                                     "devices visible")
+        if cfg.batch_sz % args.dp:
+            raise SystemExit(f"batch {cfg.batch_sz} not divisible by "
+                             f"--dp {args.dp}")
+        plan = (args.dp, (args.dp, 1), (DATA_AXIS, SPACE_AXIS), None, False)
+    else:
+        return None
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.train.simclutter import _check_parallel
+    arch = get_arch(cfg.arch, swin_window=cfg.swin_window,
+                    swin_embed=cfg.swin_embed,
+                    convnext_embed=cfg.convnext_embed,
+                    transunet_embed=cfg.transunet_embed,
+                    transunet_depth=cfg.transunet_depth)
+    try:
+        _check_parallel(cfg, arch, True, plan[3], plan[4])
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return plan
+
+
+def _same_on_every_rank(what: str, *datasets) -> None:
+    """Every rank generated its data from the same seed: their digests
+    must agree over the world (the same generator seed on another card is
+    where they would part)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    h = hashlib.sha256()
+    for ds in datasets:
+        for k in sorted(ds.data):
+            h.update(k.encode())
+            h.update(_host(ds.data[k].contiguous()).tobytes())
+    mine = h.hexdigest()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if len(set(every)) != 1:
+        raise SystemExit(f"{what}: the ranks generated different data from "
+                         f"one seed (digests {sorted(set(every))})")
 
 
 def _round(metrics: dict) -> dict:
@@ -514,7 +624,8 @@ def main(argv=None):
 
     if args.cmd == "bench":
         raise SystemExit(BENCH_LATER)
-    _refuse_parallel(args)
+    if getattr(args, "sp", None):
+        _parse_sp(args.sp)
 
     import torch
 
@@ -525,6 +636,9 @@ def main(argv=None):
     from onet_tpu_torch.report import can_draw
 
     dev = resolve_device(args.device)
+    if _in_world():
+        from onet_tpu_torch.parallel import launch
+        dev = launch.device() or dev
     policy = BF16_COMPUTE if args.bf16 else DEFAULT
 
     if args.cmd == "reproduce":
@@ -840,60 +954,7 @@ def main(argv=None):
         return
 
     if args.cmd == "simclutter":
-        cfg_yaml = generate_config(args.config, "Rayleigh", argv=[])
-        from onet_tpu_torch.train.simclutter import SimclutterConfig, train
-        datasets = None
-        data_file = args.data_file or os.path.join(
-            getattr(cfg_yaml, "dataset_root", ""),
-            getattr(cfg_yaml, "data_file_name", "") or "")
-        if data_file and os.path.exists(data_file):
-            # reference rayleigh_2sigma.pt ingestion (make_simbg_dataloader,
-            # dataloader/simbg4onet_20230209.py:99-152): per-frame normalize
-            # + SNR-range filter + 90/10 split happen in simclutter_datasets
-            from onet_tpu_torch.data.simclutter import (
-                load_simclutter_pt, simclutter_datasets)
-            src = load_simclutter_pt(data_file, device=dev)
-            print(f"[simclutter] loaded {data_file}: "
-                  f"{src['imgs'].shape[0]} frames")
-            datasets = simclutter_datasets(
-                make_generator(1981, dev),
-                low_snr=getattr(cfg_yaml, "low_snr", 0),
-                high_snr=getattr(cfg_yaml, "high_snr", 2),
-                source=src, crop=min(cfg_yaml.input_sz,
-                                     src["imgs"].shape[1]), device=dev)
-        cfg = SimclutterConfig(
-            model_name=cfg_yaml.model_name,
-            epoch_nums=args.epochs or cfg_yaml.epoch_nums,
-            batch_sz=args.batch_sz or cfg_yaml.batch_sz,
-            input_sz=cfg_yaml.input_sz,
-            low_snr=getattr(cfg_yaml, "low_snr", 0),
-            high_snr=getattr(cfg_yaml, "high_snr", 2),
-            frames_per_level=args.frames_per_level,
-            bg=args.bg,
-            base_lr=float(getattr(cfg_yaml, "base_lr", 5e-6)),
-            out_root=args.out_root or cfg_yaml.out_root,
-            base_channels=args.base_channels,
-            quantized=args.int8_train,
-            # --resume or the YAML's reference-schema `restart:` key
-            resume=bool(args.resume
-                        or getattr(cfg_yaml, "restart", False)),
-            weight_share=args.weight_share,
-            arch=args.arch,
-            swin_window=args.swin_window,
-            swin_embed=args.swin_embed,
-            convnext_embed=args.convnext_embed,
-            transunet_embed=args.transunet_embed,
-            transunet_depth=args.transunet_depth,
-            loss=args.loss,
-        )
-        if args.arch != "vanilla":
-            cfg.model_name += f"_{args.arch}"
-        if args.loss != "jsd":
-            cfg.model_name += f"_{args.loss}"
-        if cfg.resume:
-            print("[simclutter] resume: newest checkpoint under "
-                  f"{cfg.out_root} (if any)")
-        train(cfg, policy=policy, datasets=datasets, device=dev)
+        _simclutter(args, argv, policy, dev)
         return
 
     if args.cmd == "zy3":
@@ -901,7 +962,7 @@ def main(argv=None):
         if args.choose_preprocess:
             _run_choose_preprocess(args, cfg_yaml, policy, dev)
             return
-        _zy3(args, cfg_yaml, policy, dev)
+        _zy3(args, argv, cfg_yaml, policy, dev)
         return
 
     if args.cmd == "nau":
@@ -909,46 +970,104 @@ def main(argv=None):
         return
 
 
-def _zy3(args, cfg_yaml, policy, dev):
-    from onet_tpu_torch.core.checkpoint import datehour_mark
-    from onet_tpu_torch.core.prng import make_generator
-    from onet_tpu_torch.data.arrays import ArrayDataset
-    from onet_tpu_torch.data.zy3 import load_zy3_dict_pt, synthesize_zy3
-    from onet_tpu_torch.models.arch import get_arch
-    from onet_tpu_torch.report import can_draw
-    from onet_tpu_torch.train.zy3 import (Zy3Config, save_zy3_test_results,
-                                          train)
+def _argv(argv) -> list:
+    import sys
+    return list(sys.argv[1:] if argv is None else argv)
 
-    if args.cloud_addition:
-        # cloud-addition workload: unsupervised training on composite
-        # scenes (clean terrain + synthetic clouds) whose masks are
-        # known by construction, so eval is exact. Reference dataset
-        # class: CloudDataset_CloudAddition + its loader
-        # (dataloader/zy3_cloud_thumbnailv5_20240304.py:262-309,338).
-        from onet_tpu_torch.data.zy3 import synthesize_cloud_addition
-        tr, _ = synthesize_cloud_addition(make_generator(0, dev),
-                                          n=args.n_train, device=dev)
-        train_ds = ArrayDataset({"imgs": tr["imgs"], "labels": tr["labels"]})
-        te, test_ids = synthesize_cloud_addition(make_generator(1, dev),
-                                                 n=args.n_test, device=dev)
-        test_ds = ArrayDataset({"imgs": te["imgs"], "labels": te["labels"]})
-        print(f"[zy3] cloud-addition composites: {args.n_train} train / "
-              f"{args.n_test} test")
-    else:
-        train_file = args.train_file or os.path.join(
-            cfg_yaml.dataset_root, cfg_yaml.train_file)
-        test_file = args.test_file or os.path.join(
-            cfg_yaml.dataset_root, cfg_yaml.test_file)
-        if os.path.exists(train_file) and os.path.exists(test_file):
-            train_ds, _ = load_zy3_dict_pt(train_file, device=dev)
-            test_ds, test_ids = load_zy3_dict_pt(test_file, device=dev)
+
+def _simclutter(args, argv, policy, dev):
+    from onet_tpu_torch.core.config import generate_config
+    from onet_tpu_torch.core.prng import make_generator
+    from onet_tpu_torch.train.simclutter import SimclutterConfig, train
+
+    cfg_yaml = generate_config(args.config, "Rayleigh", argv=[])
+    cfg = SimclutterConfig(
+        model_name=cfg_yaml.model_name,
+        epoch_nums=args.epochs or cfg_yaml.epoch_nums,
+        batch_sz=args.batch_sz or cfg_yaml.batch_sz,
+        input_sz=cfg_yaml.input_sz,
+        low_snr=getattr(cfg_yaml, "low_snr", 0),
+        high_snr=getattr(cfg_yaml, "high_snr", 2),
+        frames_per_level=args.frames_per_level,
+        bg=args.bg,
+        base_lr=float(getattr(cfg_yaml, "base_lr", 5e-6)),
+        out_root=args.out_root or cfg_yaml.out_root,
+        base_channels=args.base_channels,
+        quantized=args.int8_train,
+        # --resume or the YAML's reference-schema `restart:` key
+        resume=bool(args.resume
+                    or getattr(cfg_yaml, "restart", False)),
+        weight_share=args.weight_share,
+        arch=args.arch,
+        swin_window=args.swin_window,
+        swin_embed=args.swin_embed,
+        convnext_embed=args.convnext_embed,
+        transunet_embed=args.transunet_embed,
+        transunet_depth=args.transunet_depth,
+        loss=args.loss,
+    )
+    if args.arch != "vanilla":
+        cfg.model_name += f"_{args.arch}"
+    if args.loss != "jsd":
+        cfg.model_name += f"_{args.loss}"
+    plan = _simclutter_mesh(args, cfg)
+    if plan is not None and not _in_world():
+        from onet_tpu_torch.parallel.launch import launch
+        launch(plan[0], args.device, main, _argv(argv))  # main on every rank
+        return
+    datasets = None
+    data_file = args.data_file or os.path.join(
+        getattr(cfg_yaml, "dataset_root", ""),
+        getattr(cfg_yaml, "data_file_name", "") or "")
+    if data_file and os.path.exists(data_file):
+        # reference rayleigh_2sigma.pt ingestion (make_simbg_dataloader,
+        # dataloader/simbg4onet_20230209.py:99-152): per-frame normalize
+        # + SNR-range filter + 90/10 split happen in simclutter_datasets
+        from onet_tpu_torch.data.simclutter import (
+            load_simclutter_pt, simclutter_datasets)
+        src = load_simclutter_pt(data_file, device=dev)
+        print(f"[simclutter] loaded {data_file}: "
+              f"{src['imgs'].shape[0]} frames")
+        datasets = simclutter_datasets(
+            make_generator(1981, dev),
+            low_snr=getattr(cfg_yaml, "low_snr", 0),
+            high_snr=getattr(cfg_yaml, "high_snr", 2),
+            source=src, crop=min(cfg_yaml.input_sz,
+                                 src["imgs"].shape[1]), device=dev)
+    if cfg.resume:
+        print("[simclutter] resume: newest checkpoint under "
+              f"{cfg.out_root} (if any)")
+    mesh, microbatches, spatial = None, None, False
+    if plan is not None:
+        from onet_tpu_torch.core.mesh import make_mesh
+        from onet_tpu_torch.core.prng import RngStream
+        from onet_tpu_torch.data.simclutter import simclutter_datasets
+        need, shape, names, microbatches, spatial = plan
+        mesh = make_mesh(shape, names)
+        data = shape[0]
+        if spatial:
+            print(f"[simclutter] spatial halo-exchange training over {need} "
+                  f"devices (data={data} x space={shape[1]}"
+                  + (f" x spacew={shape[2]})" if len(shape) == 3 else ")"))
+        elif microbatches:
+            print(f"[simclutter] pipeline over {need} devices (data={data} x "
+                  f"stage=2, {microbatches} microbatches)")
         else:
-            print("[zy3] reference .pt files not found - "
-                  "using synthetic scenes")
-            train_ds, _ = synthesize_zy3(make_generator(0, dev), n=64,
-                                         device=dev)
-            test_ds, test_ids = synthesize_zy3(make_generator(1, dev), n=16,
-                                               device=dev)
+            print(f"[simclutter] data-parallel over {need} devices")
+        if datasets is None:
+            # the driver's own draw (its stream's first generator)
+            datasets = simclutter_datasets(
+                RngStream(cfg.seed, device=dev).next(), low_snr=cfg.low_snr,
+                high_snr=cfg.high_snr, frames_per_level=cfg.frames_per_level,
+                crop=cfg.input_sz, bg=cfg.bg, device=dev)
+        _same_on_every_rank("simclutter", *datasets)
+    train(cfg, policy=policy, datasets=datasets, mesh=mesh,
+          pipeline_microbatches=microbatches, spatial=spatial, device=dev)
+
+
+def _zy3_config(args, cfg_yaml):
+    from onet_tpu_torch.train.zy3 import Zy3Config
+
     cfg = Zy3Config(
         model_name=(cfg_yaml.model_name + "_cloudadd"
                     if args.cloud_addition else cfg_yaml.model_name),
@@ -977,8 +1096,88 @@ def _zy3(args, cfg_yaml, policy, dev):
         cfg.model_name += f"_{args.arch}"
     if args.loss != "jsd":
         cfg.model_name += f"_{args.loss}"
+    return cfg
+
+
+# train / test scenes synthesized where the reference .pt files are absent
+ZY3_SYNTH_SCENES = (64, 16)
+
+
+def _zy3_files(args, cfg_yaml):
+    """(train, test) .pt paths where both exist, else None."""
+    files = tuple(getattr(args, f"{k}_file") or os.path.join(
+        cfg_yaml.dataset_root, getattr(cfg_yaml, f"{k}_file"))
+        for k in ("train", "test"))
+    return files if all(os.path.exists(f) for f in files) else None
+
+
+def _zy3_check_dp(args, cfg, n_train: int) -> None:
+    if cfg.batch_sz % args.dp or n_train % cfg.batch_sz:
+        raise SystemExit(
+            f"batch {cfg.batch_sz} must divide --dp {args.dp} and the "
+            f"{n_train} train frames (use --batch-sz)")
+
+
+def _zy3(args, argv, cfg_yaml, policy, dev):
+    from onet_tpu_torch.core.checkpoint import datehour_mark
+    from onet_tpu_torch.core.prng import make_generator
+    from onet_tpu_torch.data.arrays import ArrayDataset
+    from onet_tpu_torch.data.zy3 import load_zy3_dict_pt, synthesize_zy3
+    from onet_tpu_torch.models.arch import get_arch
+    from onet_tpu_torch.report import can_draw
+    from onet_tpu_torch.train.zy3 import save_zy3_test_results, train
+
+    cfg = _zy3_config(args, cfg_yaml)
+    if args.dp and not _in_world():
+        _need_devices(args, args.dp, f"--dp {args.dp} but only {{}} devices "
+                                     "visible")
+        if args.cloud_addition or not _zy3_files(args, cfg_yaml):
+            # the scene count is known before any rank starts; the ranks
+            # check a .pt file's once they have loaded it
+            _zy3_check_dp(args, cfg, args.n_train if args.cloud_addition
+                          else ZY3_SYNTH_SCENES[0])
+        from onet_tpu_torch.parallel.launch import launch
+        launch(args.dp, args.device, main, _argv(argv))  # main on every rank
+        return
+    if args.cloud_addition:
+        # cloud-addition workload: unsupervised training on composite
+        # scenes (clean terrain + synthetic clouds) whose masks are
+        # known by construction, so eval is exact. Reference dataset
+        # class: CloudDataset_CloudAddition + its loader
+        # (dataloader/zy3_cloud_thumbnailv5_20240304.py:262-309,338).
+        from onet_tpu_torch.data.zy3 import synthesize_cloud_addition
+        tr, _ = synthesize_cloud_addition(make_generator(0, dev),
+                                          n=args.n_train, device=dev)
+        train_ds = ArrayDataset({"imgs": tr["imgs"], "labels": tr["labels"]})
+        te, test_ids = synthesize_cloud_addition(make_generator(1, dev),
+                                                 n=args.n_test, device=dev)
+        test_ds = ArrayDataset({"imgs": te["imgs"], "labels": te["labels"]})
+        print(f"[zy3] cloud-addition composites: {args.n_train} train / "
+              f"{args.n_test} test")
+    else:
+        files = _zy3_files(args, cfg_yaml)
+        if files:
+            train_ds, _ = load_zy3_dict_pt(files[0], device=dev)
+            test_ds, test_ids = load_zy3_dict_pt(files[1], device=dev)
+        else:
+            print("[zy3] reference .pt files not found - "
+                  "using synthetic scenes")
+            n_train, n_test = ZY3_SYNTH_SCENES
+            train_ds, _ = synthesize_zy3(make_generator(0, dev), n=n_train,
+                                         device=dev)
+            test_ds, test_ids = synthesize_zy3(make_generator(1, dev),
+                                               n=n_test, device=dev)
+    mesh = None
+    if args.dp:
+        from onet_tpu_torch.core.mesh import make_mesh
+        _zy3_check_dp(args, cfg, len(train_ds))
+        mesh = make_mesh((args.dp, 1))
+        print(f"[zy3] data-parallel over {args.dp} devices")
+        _same_on_every_rank("zy3", train_ds, test_ds)
     params, bn_state, _ = train(cfg, train_ds, test_ds, policy=policy,
-                                device=dev)
+                                mesh=mesh, device=dev)
+    if mesh is not None and mesh.rank != mesh.ranks[0]:
+        return                   # rank 0 writes the report
     # divided-testset Excel report with embedded thumbnails
     # (save_zy3_test_results_to_excel, uti_zy3_test_20240123.py:320-429)
     groups = _division(cfg_yaml, test_ids)
@@ -1123,6 +1322,61 @@ def _nau(args, policy, dev):
           f"{fig if can_draw() else 'not drawn (no matplotlib)'}")
 
 
+def _to_device(tree, device):
+    """``tree`` (dicts, lists and tuples of tensors) copied to ``device``."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+def _serve_shards(step, model_arg, devices):
+    """``serve --dp``: ``step(model, batch) -> (S, labels)`` over
+    ``devices`` in this process. The model is copied to each device; a
+    batch is cut into equal shards (a ragged tail padded by repeating the
+    last frame, the pad dropped after), each shard runs on its device and
+    a stream of its own, from a thread of its own, and the outputs are
+    gathered on the first device. No collective: each shard is the whole
+    per-frame graph (JAX's ``shard_map`` serving)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    n = len(devices)
+    models = [model_arg if i == 0 else _to_device(model_arg, d)
+              for i, d in enumerate(devices)]
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+               for d in devices]
+    pool = ThreadPoolExecutor(n)
+
+    def run(i, xb):
+        d, s = devices[i], streams[i]
+        with torch.inference_mode():
+            if s is None:
+                return step(models[i], xb)
+            with torch.cuda.device(d), torch.cuda.stream(s):
+                s.wait_stream(torch.cuda.default_stream(xb.device))
+                out = step(models[i], xb.to(d, non_blocking=True))
+                s.synchronize()
+            return out
+
+    def dp_step(m, xb):
+        nb = xb.shape[0]
+        pad = (-nb) % n
+        if pad:
+            xb = torch.cat([xb, xb[-1:].expand(pad, *xb.shape[1:])])
+        outs = list(pool.map(run, range(n), xb.chunk(n)))
+        home = xb.device
+        return tuple(torch.cat([o[k].to(home) for o in outs])[:nb]
+                     for k in range(2))
+
+    return dp_step
+
+
 def _serve(args, policy, dev):
     import time
 
@@ -1146,12 +1400,21 @@ def _serve(args, policy, dev):
                 "--int8 quantizes a checkpoint's folded graph; an "
                 "artifact's arithmetic is already baked in "
                 "(export a quantized one: export-artifact --int8)")
+        if args.dp:
+            raise SystemExit(
+                "--dp shards the checkpoint serving graph; export "
+                "artifacts are single-device graphs (serve the .npz "
+                "checkpoint with --dp instead)")
         acall, ameta = load_serving_artifact(args.model, dev)
         print(f"[serve] artifact {args.model}: "
               f"{ameta.get('arithmetic', 'bf16')}, input "
               f"[{ameta['batch']}, {ameta['input_hw'][0]}, "
               f"{ameta['input_hw'][1]}, {ameta['in_channels']}], "
               f"exported from {ameta.get('model', '?')}")
+    if args.dp:
+        # one process over the devices: the check JAX makes before it
+        # shards, made here before anything is loaded
+        _need_devices(args, args.dp, f"--dp {args.dp}: only {{}} devices")
     # the checkpoint's own metadata picks the backbone family
     # (models/arch.py; npz files written by the train drivers carry it;
     # meta-less / torch checkpoints are the vanilla conv U-Net)
@@ -1276,10 +1539,17 @@ def _serve(args, policy, dev):
             s, _ = base_step(m, xb)
             return s, (score_of(s) > _thr).to(torch.int32)
 
+    if args.dp:
+        devices = ([dev] * args.dp if dev.type == "cpu" else
+                   [torch.device("cuda", i) for i in range(args.dp)])
+        step = _serve_shards(step, model_arg, devices)
+        print(f"[serve] data-parallel over {args.dp} devices")
     mode = (f"artifact:{ameta.get('arithmetic', '?')}" if artifact_mode
             else "int8" if args.int8 else "bf16" if args.bf16 else "fp32")
     if args.far_budget:
         mode += f"+detector@far{args.far_budget:g}"
+    if args.dp:
+        mode += f"+dp{args.dp}"
     if args.http is not None:
         # resident daemon: the step stays warm and answers npy-over-HTTP
         # (serve/http.py). The pipeline above (int8 / detector / tiling)

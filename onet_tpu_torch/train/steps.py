@@ -98,7 +98,8 @@ def make_loss_and_grads(objective, mesh=None, *, policy: Policy = DEFAULT,
                     a + b for a, b in zip(gsum, g)]
                 vsum = value if vsum is None else vsum + value
             flat = all_reduce_flat(gsum + [vsum.reshape(1)], world,
-                                   scale=1.0 / (size * microbatches))
+                                   scale=1.0 / (size * microbatches),
+                                   name="grads")
         return flat[-1].reshape(()), new_state, tree_unflatten(params,
                                                                flat[:-1])
 
@@ -193,11 +194,10 @@ def make_train_step(*, policy: Policy = DEFAULT, bias: float = 0.0,
     else:
         ops = DEFAULT_OPS
     if mesh is not None and spatial and SPACE_AXIS in mesh.axis_names:
-        if quantized:
-            raise ValueError("spatial training is exact-arithmetic only")
         from onet_tpu_torch.parallel.halo import make_spatial_train_step
         return make_spatial_train_step(mesh, policy=policy, bias=bias,
-                                       loss=loss, microbatches=microbatches)
+                                       loss=loss, microbatches=microbatches,
+                                       quantized=quantized)
     objective = onet_objective(mesh, policy=policy, bias=bias, ops=ops,
                                loss=loss, forward=forward)
     return with_adam(make_loss_and_grads(objective, mesh, policy=policy,

@@ -144,6 +144,70 @@ def _j_eval(p, s, x, labels, align):
                 pred=np.asarray(pred))
 
 
+def _halves():
+    """8 frames whose two halves (the two data shards of mesh (2, 1)) have
+    maxima 3x apart: rows 4-7 are three times rows 0-3's draws."""
+    x = np.random.default_rng(13).uniform(0, 1, (8, 32, 32, 1))
+    x[4:] *= 3.0
+    return x.astype(np.float32)
+
+
+XQ = _halves()
+F32 = jnp.float32      # _j_f64 raises jnp.float32 in the pool's processes
+LR_Q = 1e-3            # tests/test_torch_qtrain.py's
+LEVELS = ("fwd", "fwd+dx")
+
+
+def _j_qtrain(p, s, x, level, steps=3):
+    """JAX's int8 training on the global batch ``x``: the one-device
+    step's first loss and gradient (``make_train_step``'s loss through
+    ``make_qtrain_ops``), and its GSPMD mesh step on (data 2) for
+    ``steps`` Adam steps, the first conv's activation scale caught by a
+    debug callback (the first ``_quant_act`` traced)."""
+    from onet_tpu.models import qtrain as JT
+
+    jnp.float32 = F32
+    ops = JT.make_qtrain_ops(level=level)
+
+    @jax.jit
+    def grads_of(pp, ss, xx):
+        def lf(q):
+            out, _ = JO.onet_forward(q, ss, xx, train=True, ops=ops)
+            return JO.LOSSES["jsd"](out)
+        return jax.value_and_grad(lf)(pp)
+
+    put = lambda t: jax.tree.map(jnp.asarray, t)          # noqa: E731
+    lv, g = grads_of(put(p), put(s), jnp.asarray(x))
+    seen, traced = [], []
+    real = JT._quant_act
+
+    def spy(v):
+        q, sc = real(v)
+        if not traced:                 # the first conv's scale only
+            jax.debug.callback(lambda a: seen.append(np.asarray(a)), sc)
+        traced.append(1)
+        return q, sc
+
+    JT._quant_act = spy
+    try:
+        mesh = j_make_mesh(shape=(2, 1), devices=jax.devices()[:2])
+        rep = j_replicated(mesh)
+        jp, jb = (jax.device_put(put(t), rep) for t in (p, s))
+        jo = jax.device_put(JOpt.adam_init(jp), rep)
+        step = j_make_train_step(mesh=mesh, quantized=level)
+        losses = []
+        for _ in range(steps):
+            jp, jb, jo, jl = step(jp, jb, jo, jax.device_put(
+                jnp.asarray(x), j_batch_sharding(mesh)), LR_Q)
+            losses.append(float(jl))
+        jax.effects_barrier()
+    finally:
+        JT._quant_act = real
+    sx = seen[0]
+    return dict(loss=float(lv), grads=_np(jax.tree.leaves(g)), sx=sx,
+                mesh_losses=losses, mesh_params=_np(jax.tree.leaves(jp)))
+
+
 def _port_model(base, seed):
     """Weights drawn by the port's init (JAX's jitted init compiles for
     seconds), as numpy for both packages."""
@@ -172,10 +236,12 @@ LABELS = (X8[..., 0] > 0.5).astype(np.int32)
 @pytest.fixture(scope="module")
 def jax_runs(model8, model64):
     """Every JAX program of this file, each compiled and run in a spawned
-    process of a pool, all started at once: {name: future}."""
+    process of a pool, all started at once (the longest first): {name:
+    future}."""
     import multiprocessing as mp
     p, s = model8
-    jobs = {"jsd": (_j_f64, p, s, X8),
+    jobs = {**{f"q_{lv}": (_j_qtrain, p, s, XQ, lv) for lv in LEVELS},
+            "jsd": (_j_f64, p, s, X8),
             "rsn": (_j_f64, p, s, X8, "rsn"),
             "mb2": (_j_f64, p, s, X8, "jsd", 2),
             "mb4": (_j_f64, p, s, X8, "jsd", 4),
@@ -498,3 +564,211 @@ def test_multihost_helpers(world, monkeypatch):
         assert o["key"] == derive_seed(1981, r)
         assert o["global_ok"]
     assert len({o["key"] for o in out}) == 4
+
+
+# ---------------------------------------------------------------------------
+# int8 training on a mesh: one activation scale over the global batch
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def port_q(model8):
+    """The port's one-device int8 step on the global batch XQ, per level:
+    the first conv's codes and scale, 3 steps' losses, the first step's
+    gradient and the final parameters; and ``moved``, the first step's
+    gradient with the first activation scale one ulp up."""
+    import torch
+    from onet_tpu_torch.models import qtrain as Q
+    from onet_tpu_torch.ops.math import div
+    from onet_tpu_torch.train import optim, steps as S
+    from torch_parallel_worker import leaves_np, tree_t
+
+    real = Q._quant_act
+
+    def run(level, steps, moved=False):
+        first, grads = [], []
+
+        def quant(x, axis=None):
+            if moved and not first:
+                xf = x.float()
+                sc = torch.nextafter(torch.clamp_min(
+                    div(torch.amax(torch.abs(xf)), Q.QMAX), 1e-12),
+                    torch.tensor(np.inf))
+                q = torch.clamp(torch.round(xf / sc), -Q.QMAX, Q.QMAX)
+                q = q.to(torch.int8)
+            else:
+                q, sc = real(x, axis)
+            if not first:
+                first.append((q.numpy().copy(), sc.numpy().copy()))
+            return q, sc
+
+        def adam(g, o, lr):
+            grads.append(leaves_np(g))
+            return optim.adam_update(g, o, lr)
+
+        old = S.adam_update
+        Q._quant_act, S.adam_update = quant, adam
+        try:
+            p, s = (tree_t(t) for t in model8)
+            o, losses = optim.adam_init(p), []
+            step = S.make_train_step(quantized=level)
+            for _ in range(steps):
+                p, s, o, v = step(p, s, o, torch.tensor(XQ), LR_Q)
+                losses.append(float(v))
+        finally:
+            Q._quant_act, S.adam_update = real, old
+        return dict(codes=first[0][0], sx=first[0][1], losses=losses,
+                    grads=grads[0], params=leaves_np(p))
+
+    out = {}
+    for level in LEVELS:
+        out[level] = run(level, 3)
+        out[level]["moved"] = run(level, 1, moved=True)["grads"]
+    return out
+
+
+def _cos(a, b):
+    a, b = _vec(a), _vec(b)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _updates(params, p0):
+    return [np.asarray(a, np.float64) - q for a, q in zip(params, p0)]
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_int8_dp_step_takes_global_scale(world, model8, port_q, jax_runs,
+                                         level):
+    """Data parallel (data 2) int8 training on frames whose halves have
+    maxima 3x apart. JAX's GSPMD step quantizes the global batch with one
+    scale (``_quant_act``'s max runs over the sharded batch); every rank
+    must take the same scale: the first conv's codes and scale on each
+    rank bit-equal to the one-device port step's on its rows (before the
+    fix rank 0 took 1/127 where the global scale is 3/127), the scale
+    within 2 ulps of JAX's mesh step's (jitted XLA multiplies by 1/127),
+    3 Adam steps' losses within tests/test_torch_qtrain.py's rtol 1e-3 of
+    JAX's mesh step. The parameters after them: Adam from zero moments
+    moves each by about lr * sign(g) a step, so a gradient near zero can
+    flip a step's sign; the mesh step's updates must agree with JAX's mesh
+    step's as well as the one-device port step's do (cosine and sign
+    share within 0.01 of its)."""
+    p, s = model8
+    one, ref = port_q[level], jax_runs[f"q_{level}"].result()
+    out = world.run("qtrain", shape=(2, 1), names=DS, ranks=[0, 1], x=XQ,
+                    lr=LR_Q, params=p, state=s, level=level)
+    assert out[0]["digest"] == out[1]["digest"]
+    for r in (0, 1):
+        np.testing.assert_array_equal(out[r]["sx"], one["sx"])
+        np.testing.assert_array_equal(out[r]["codes"],
+                                      one["codes"][4 * r:4 * r + 4])
+    np.testing.assert_array_max_ulp(out[0]["sx"], ref["sx"], maxulp=2)
+    np.testing.assert_allclose(out[0]["losses"], ref["mesh_losses"],
+                               rtol=1e-3)
+    p0 = jax.tree.leaves(p)
+    uj = _vec(_updates(ref["mesh_params"], p0))
+    for tag, got in (("mesh", out[0]["params"]), ("one", one["params"])):
+        u = _vec(_updates(got, p0))
+        cos = float(u @ uj / (np.linalg.norm(u) * np.linalg.norm(uj)))
+        same = float(np.mean(np.sign(u) == np.sign(uj)))
+        if tag == "mesh":
+            mesh_cos, mesh_same = cos, same
+    print(f"updates against JAX's mesh step: mesh cosine {mesh_cos:.4f} "
+          f"signs {mesh_same:.4f}; one-device {cos:.4f} {same:.4f}")
+    assert mesh_cos >= cos - 0.01 and mesh_same >= same - 0.01
+
+
+@pytest.mark.parametrize("grid,level", [((1, 2), "fwd"),
+                                        ((1, 2), "fwd+dx"),
+                                        ((1, 2, 2), "fwd")])
+def test_int8_spatial_step_matches_one_device(world, model8, port_q,
+                                              jax_runs, grid, level):
+    """int8 training on the halo step (mesh (1, 2) and (1, 2, 2)): each
+    rank quantizes its halo-padded block with the global scale, so its
+    first-conv codes are the one-device step's, zero-padded at the image
+    edges, and the first loss is within 1e-4 relative of the port's and
+    JAX's one-device int8 step's.
+
+    Gradient: int8 training's gradient has a cliff at a rounding boundary.
+    The one-device step with its first activation scale one ulp up
+    (``moved``) flips codes and reads cosine 0.99924 (fwd) / 0.99915
+    (fwd+dx) of the step as it is. The meshes sum BatchNorm's statistics
+    in another order (per block, then all-reduced); on these frames that
+    lands (1, 2)'s gradient at cosine 0.99923 / 0.99915 of the one-device
+    step's and 0.99999 / 0.99997 of the moved one's, and (1, 2, 2)'s the
+    other way round. Held: cosine > 0.9999 to the nearer of the two, and
+    to JAX's one-device gradient within 1e-4 of that one's. A halo
+    backward that drops the exchanged rows' cotangents reads 0.9970 to
+    0.9975 on (1, 2) against either."""
+    p, s = model8
+    one, ref = port_q[level], jax_runs[f"q_{level}"].result()
+    names = DSW if len(grid) == 3 else DS
+    n = int(np.prod(grid))
+    out = world.run("qtrain", shape=grid, names=names, ranks=list(range(n)),
+                    x=XQ, lr=LR_Q, params=p, state=s, level=level,
+                    spatial=True, steps=1)
+    assert len({o["digest"] for o in out[:n]}) == 1
+    cols = len(grid) == 3
+    padded = np.pad(one["codes"], ((0, 0), (1, 1), (int(cols), int(cols)),
+                                   (0, 0)))
+    h, w = 32 // grid[1], 32 // (grid[2] if cols else 1)
+    for o in out[:n]:
+        i, j = o["coords"]["space"], o["coords"].get("spacew", 0)
+        want = padded[:, i * h:i * h + h + 2]
+        if cols:
+            want = want[:, :, j * w:j * w + w + 2]
+        np.testing.assert_array_equal(o["sx"], one["sx"])
+        np.testing.assert_array_equal(o["codes"], want)
+    res = out[0]
+    np.testing.assert_allclose(res["losses"][0], one["losses"][0],
+                               rtol=1e-4)
+    np.testing.assert_allclose(res["losses"][0], ref["loss"], rtol=1e-4)
+    c_one, c_moved = (_cos(res["grads"], one[k]) for k in ("grads",
+                                                           "moved"))
+    near = one["grads"] if c_one >= c_moved else one["moved"]
+    got_j, base = _cos(res["grads"], ref["grads"]), _cos(near, ref["grads"])
+    print(f"gradient cosine: one-device port {c_one:.6f}, moved "
+          f"{c_moved:.6f}; JAX {got_j:.6f} (the nearer to JAX {base:.6f})")
+    assert max(c_one, c_moved) > 0.9999 and got_j > base - 1e-4
+
+
+@pytest.mark.parametrize("grid", [(1, 2, 1), (1, 2, 2)])
+def test_halo_int8_conv_matches_one_device(world, grid):
+    """The halo int8 conv on each rank's block, with the scale taken over
+    the mesh, equals the one-device int8 conv's rows bit for bit (int8
+    sums are exact; the conv pads SAME and is cut to the VALID extent)."""
+    import torch
+    from onet_tpu_torch.models.qtrain import conv3x3_q
+    x = np.random.default_rng(0).normal(size=(2, 16, 16, 4)).astype(
+        np.float32)
+    x[:, 8:] *= 3.0                       # the lower blocks hold the max
+    w = np.random.default_rng(1).normal(size=(3, 3, 4, 4)).astype(
+        np.float32)
+    want = conv3x3_q(torch.tensor(x), torch.tensor(w), torch.float32,
+                     False).numpy()
+    _, rows, cols = grid
+    names, shape = (DSW, grid) if cols > 1 else (DS, (1, rows))
+    n = rows * cols
+    out = world.run("halo_conv", shape=shape, names=names,
+                    ranks=list(range(n)), x=x, w=w, n_space=rows,
+                    n_spacew=cols, quantized="fwd")
+    h, wd = 16 // rows, 16 // cols
+    for o in out[:n]:
+        i, j = o["coords"]["space"], o["coords"].get("spacew", 0)
+        np.testing.assert_array_equal(
+            o["y"], want[:, i * h:(i + 1) * h, j * wd:(j + 1) * wd])
+
+
+def test_drivers_refuse_spatial_int8():
+    """The step runs int8 on the halo path; the simclutter driver still
+    refuses ``spatial`` with ``quantized`` before any work, with the JAX
+    package's driver's message (the JAX driver refuses after generating
+    its data, so its message is read from its source)."""
+    import inspect
+
+    from onet_tpu.train import simclutter as JS
+    from onet_tpu_torch.train import simclutter as TS
+
+    with pytest.raises(ValueError) as e:
+        TS.train(TS.SimclutterConfig(quantized="fwd"), mesh=object(),
+                 spatial=True)
+    assert str(e.value) == "spatial training is exact-arithmetic only"
+    assert f'raise ValueError("{e.value}")' in inspect.getsource(JS.train)

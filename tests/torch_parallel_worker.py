@@ -224,18 +224,22 @@ def collective_case(shape, names, ranks, x, axis, op, dim=0, seed=0):
             "dx": dx.numpy()}
 
 
-def halo_conv_case(shape, names, ranks, x, w, n_space, n_spacew):
-    """The halo conv on this rank's block of ``x``; returns (coords,
-    block)."""
+def halo_conv_case(shape, names, ranks, x, w, n_space, n_spacew,
+                   quantized=None):
+    """The halo conv (``quantized``: int8, its scale over the mesh) on
+    this rank's block of ``x``; returns (coords, block)."""
+    from onet_tpu_torch.core.mesh import DATA_AXIS, SPACE_AXIS, SPACEW_AXIS
     from onet_tpu_torch.core.mesh import batch_sharding
+    from onet_tpu_torch.models import layers as L
     from onet_tpu_torch.parallel.halo import make_halo_ops
 
     mesh = _mesh(shape, names, ranks)
     if mesh is None:
         return None
-    ops = make_halo_ops(n_space, n_spacew, mesh=mesh)
+    ops = make_halo_ops(n_space, n_spacew, mesh=mesh, quantized=quantized)
     xl = batch_sharding(mesh, spatial=True).local(torch.tensor(x))
-    y = ops.conv3x3(xl, torch.tensor(w))
+    with L.bn_axis(mesh.axis((DATA_AXIS, SPACE_AXIS, SPACEW_AXIS))):
+        y = ops.conv3x3(xl, torch.tensor(w))
     return {"coords": mesh.coords, "y": y.numpy()}
 
 
@@ -368,7 +372,123 @@ def preempt_case(shape, names, ranks, term_rank, polls=4):
     return seen
 
 
+def qtrain_case(shape, names, ranks, x, lr, params, state, level,
+                spatial=False, steps=3):
+    """``steps`` int8 train steps (``make_train_step(mesh,
+    quantized=level)``, with ``spatial`` the halo step) on the global
+    batch ``x``. The first activation quantization of the first step (the
+    first conv's codes and scale, on this rank's block) is caught on every
+    rank, and the first step's gradient on the way to Adam. Rank 0 also
+    returns the losses and the final parameters; every rank its digest."""
+    from onet_tpu_torch.models import qtrain as Q
+    from onet_tpu_torch.train import optim, steps as S
+    from onet_tpu_torch.train.optim import adam_init
+
+    mesh = _mesh(shape, names, ranks)
+    if mesh is None:
+        return None
+    p, s = _model(params, state, 8, 0)
+    first, grads = [], []
+    real_quant = Q._quant_act
+
+    def quant(*a, **k):
+        q, sc = real_quant(*a, **k)
+        if not first:
+            first.append((q.numpy().copy(), sc.numpy().copy()))
+        return q, sc
+
+    def adam(g, opt_state, lr_):
+        grads.append(leaves_np(g))
+        return optim.adam_update(g, opt_state, lr_)
+
+    old = S.adam_update
+    Q._quant_act, S.adam_update = quant, adam
+    try:
+        step = S.make_train_step(mesh=mesh, spatial=spatial,
+                                 quantized=level)
+        o, losses = adam_init(p), []
+        for _ in range(steps):
+            p, s, o, v = step(p, s, o, torch.tensor(np.array(x)), lr)
+            losses.append(float(v))
+    finally:
+        Q._quant_act, S.adam_update = real_quant, old
+    res = {"digest": digest(p, s, o), "coords": mesh.coords,
+           "codes": first[0][0], "sx": first[0][1]}
+    if mesh.rank == ranks[0]:
+        res.update(losses=losses, grads=grads[0], params=leaves_np(p))
+    return res
+
+
+def cli_case(argv, driver):
+    """``run.main(argv)`` on this rank of the world (a --dp / --pp / --sp
+    command runs its rank here, as the ranks ``parallel/launch.py``
+    spawns do); the driver's history is caught on the way out. Figures
+    are off."""
+    import importlib
+
+    from onet_tpu_torch import report, run
+
+    mod = importlib.import_module(f"onet_tpu_torch.train.{driver}")
+    real, draw = mod.train, (report.can_draw, mod.can_draw)
+    caught = []
+
+    def train(*a, **k):
+        out = real(*a, **k)
+        caught.append(out[2])
+        return out
+
+    mod.train = train
+    report.can_draw = mod.can_draw = lambda: False
+    try:
+        run.main(argv)
+    finally:
+        mod.train = real
+        report.can_draw, mod.can_draw = draw
+    return {"hist": caught[0]}
+
+
+def record_case(what, shape, names, ranks, x=None, microbatches=1,
+                argv=None):
+    """The collectives one operation issues on this rank
+    (``collectives.record``): ``psum`` of ``x``'s block, the forward and
+    its gradient; one data-parallel (``dp``) or pipeline (``pp``) train
+    step on the global batch ``x``; or the command ``argv``
+    (``run.main``)."""
+    from onet_tpu_torch.core.policy import DEFAULT
+    from onet_tpu_torch.parallel import collectives as C
+    from onet_tpu_torch.train.optim import adam_init
+
+    mesh = _mesh(shape, names, ranks)
+    if mesh is None:
+        return None
+    with C.record() as cols:
+        if what == "psum":
+            xt = torch.tensor(np.array(x[mesh.rank])).requires_grad_(True)
+            C.psum(xt, mesh.axis("data")).sum().backward()
+        elif what == "command":
+            from onet_tpu_torch import run
+            run.main(argv)
+        else:
+            p, s = _model(None, None, 8, 0)
+            step = _step(what, mesh, DEFAULT, microbatches, "jsd")
+            step(p, s, adam_init(p), torch.tensor(np.array(x)), 1e-4)
+    return cols
+
+
+def failing_rank(kind):
+    """A rank for ``parallel/launch.py``'s failure paths: rank 1 refuses
+    with ``SystemExit`` (``kind`` "refusal") or raises ("error"); rank 0
+    returns and waits for it at the world's last barrier."""
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        if kind == "refusal":
+            raise SystemExit("batch 5 must divide --dp 2")
+        raise ValueError("rank 1 broke")
+    return "rank 0"
+
+
 CASES = {"sim": sim_case, "preempt": preempt_case, "zy3": zy3_case, "supervised": supervised_case,
          "train": train_case, "eval": eval_case,
          "collective": collective_case, "halo_conv": halo_conv_case,
-         "multihost": multihost_case}
+         "multihost": multihost_case, "qtrain": qtrain_case,
+         "cli": cli_case, "record": record_case}
