@@ -10,381 +10,518 @@
 //                (quant.py:307-315)
 // Both are one GEMM, D[pixel][col] = sum_k A[pixel][k] B[col][k]:
 //   3x3:  pixel = (n, y, x), col = co, k = (tap, ci) with tap = 3 dy + dx,
-//         A gathered from x[n, y + dy - 1, x + dx - 1, ci] (zero outside:
-//         the SAME padding), B[co][k] = w[dy, dx, ci, co];
+//         A = x[n, y + dy - 1, x + dx - 1, ci] (zero outside: the SAME
+//         padding), B[co][k] = w[dy, dx, ci, co];
 //   convT: pixel = (n, i, j) of the input, col = (di, dj, co), k = ci,
 //         A = x[n, i, j, ci], B[(di, dj, co)][ci] = w[di, dj, ci, co] of the
-//         unflipped kernel; the epilogue scatters col into the output pixel
+//         unflipped kernel; the epilogue writes col to the output pixel
 //         (2i + di, 2j + dj).
-// The wrapper (ops/conv_i8.py) lays B out once per call, K contiguous and
-// padded with zero codes to a multiple of 64; the kernel zero-fills A past
-// K, so a padded K adds zero products: exact.
+// The wrapper (ops/conv_i8.py) pads ci with zero codes to cip (32, or a
+// multiple of 64) and lays B out once per call, [cols][kpad] with kpad =
+// 9 cip or cip, K contiguous; zero codes add zero products: exact.
 //
 // Epilogue (out mode), per column channel o, in the plain version's order
 // and rounding, without FMA contraction:
-//   I32  acc
-//   F32  v = acc * scale[o] (+ bias[o])        __fmul_rn, __fadd_rn
-//   U8   clamp(rint(v / snext[o]), 0, 127)     __fdiv_rn, round half even
-//   S8   clamp(rint(v / snext[o]), -127, 127)
+//   I32   acc
+//   F32   v = acc * scale[o] (+ bias[o])        __fmul_rn, __fadd_rn
+//   U8    clamp(rint(v / snext[o]), 0, 127)     __fdiv_rn, round half even
+//   S8    clamp(rint(v / snext[o]), -127, 127)
+//   U8X2  U8 at snext and U8 at snext2, two tensors from one accumulator
+//         (the sites whose output feeds a skip and the next conv)
 // so the codes are bit-equal to the plain version's (ops/conv_i8.py, which
 // computes the accumulator exactly in float64).
 //
-// What bounds it on the H100. At the int8 serving graph's 512x512 sites
-// (batch 8) a conv does 2 * 8 * 512^2 * 9 ci co operations: up4.conv1
-// (ci 256, co 128) 1.24 T operations, 0.625 ms at 1979 dense int8 TOP/s,
-// against 0.8 GB in and out, 0.24 ms at 3.35 TB/s; the deep sites are
-// operations-bound by far. This first kernel is the simple form: mma.sync
-// m16n8k32 s8 (the tensor cores through the pre-Hopper path), a 128 x 128
-// output tile per
-// 256-thread block (8 warps of 64 x 32), K in steps of 64 bytes through a
-// 3-stage cp.async ring; A's 16-byte chunks (4-byte where ci is not a
-// multiple of 16) gathered from NHWC with the zero fill of cp.async's
-// src-size; fragments by ldmatrix from rows padded to 80 bytes (no bank
-// conflicts); the epilogue stages the tile in shared memory and stores
-// 16-byte runs of a pixel's channels (a scattered store of each
-// accumulator was slower, most for the transposed conv's scatter).
-// Registers are held to 128, two blocks an SM (at 165-175 registers one
-// block an SM left the sites of one K step, inc.conv1's K = 18, waiting
-// on their loads). wgmma s8 and TMA are the later redesign.
+// What bounds it on the H100. A 3x3 site at 512^2 (batch 8) does
+// 2 * 8 * 512^2 * 9 ci co operations: up4.conv1 (ci 256, co 128) 1.24 T,
+// 0.625 ms at 1979 dense int8 TOP/s against 0.27 GB in and out, 0.08 ms at
+// 3.35 TB/s; the ci >= 128 sites are operations-bound, inc.conv1 (ci 2)
+// and the transposed convs (K = ci, one tap) bytes-bound. So the tensor
+// cores must be fed at their rate, and the epilogue (a correctly rounded
+// division an output) must not stall them.
+//
+// Design (one main loop, conv_i8<CK, CONVT>):
+//  * tile: 128 pixels x 128 columns a CTA, the pixels one image's block of
+//    bh rows x bw columns (bw = 128, 64, 32 ... as W allows, bw bh = 128);
+//    column tiles fastest in the grid, so the CTAs that share a block of x
+//    run together and read it from L2;
+//  * operands by TMA: a 4-D tensor map over x [n, h, w, cip] with box
+//    {CK ci, bw, bh, 1}; tap (dy, dx) of ci block c is the box at
+//    (c, x0 + dx - 1, y0 + dy - 1, n): the hardware's zero fill of what
+//    lies outside x is the SAME padding and the ragged edge, no predicate
+//    in the kernel. The transposed conv is the same loop with one
+//    unshifted tap. B by a 2-D map over [cols, kpad], box {CK, 128};
+//  * K steps of CK bytes of ci (128, 64 or 32, by cip), each a stage of a
+//    96 KB ring (3, 6 or 12 stages), landed in the CK-byte swizzle that
+//    the tensor cores' descriptors read (no bank conflicts);
+//  * products: wgmma.mma_async m64n128k32 .s32.s8.s8, both operands
+//    K-major in shared memory; two consumer warpgroups, 64 pixels each,
+//    64 int32 accumulators a thread; one producer warp (one thread) keeps
+//    the ring full against "full" mbarriers (transaction bytes); each
+//    consumer warp releases a stage on its "empty" mbarrier once the wgmma
+//    that read it have completed (wait_group 1 keeps one in flight);
+//  * two CTAs an SM (100 KB of shared memory, at most 112 registers a
+//    thread), so one CTA's epilogue and ring fill overlap the other's
+//    products;
+//  * epilogue: the tile's outputs (one or two code tiles, or int32 / f32)
+//    staged in the ring, then 16-byte stores of whole runs: a 3x3 tile row
+//    is one pixel's channels, consecutive rows consecutive pixels; a
+//    transposed-conv tile row is, for each di, a run of 2 co columns
+//    (dj, o) of y[n, 2i + di, 2j .. 2j + 1, :], consecutive rows j
+//    adjacent. Each row's base offset in y is computed once a tile.
 
-#include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;          // pixels of a block tile
-constexpr int BN = 128;          // columns of a block tile
-constexpr int BK = 64;           // bytes of K a stage
-constexpr int LDS = BK + 16;     // shared row stride: 80 bytes
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr int TILE_BYTES = BM * (BN * 4 + 16);  // the f32 / int32 out tile
-constexpr int SMEM = STAGES * STAGE_BYTES > TILE_BYTES
-                         ? STAGES * STAGE_BYTES : TILE_BYTES;  // 67,584
+constexpr int BM = 128;                  // pixels of a tile
+constexpr int BN = 128;                  // columns of a tile
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int RING = 96 * 1024;          // the stage ring, bytes
+constexpr int OFF_BAR = RING;            // 2 x at most 12 stages x 8 bytes
+constexpr int OFF_ROWS = RING + 256;     // 128 row offsets in y
+constexpr int SMEM = OFF_ROWS + BM * 8 + 1024;  // + alignment slack
+constexpr uint64_t NO_ROW = ~0ull;       // a tile row outside y
 
-enum { OUT_I32 = 0, OUT_F32 = 1, OUT_U8 = 2, OUT_S8 = 3 };
+enum { OUT_I32 = 0, OUT_F32 = 1, OUT_U8 = 2, OUT_S8 = 3, OUT_U8X2 = 4 };
 
 struct Args {
-  const int8_t* x;      // [n, h, w, ci]
-  const int8_t* b;      // [ncols, kpad]
-  const float* scale;   // [co]
-  const float* bias;    // [co] or null
-  const float* snext;   // [co] (U8, S8)
-  void* y;              // [n, h, w, co] (3x3) or [n, 2h, 2w, co] (convT)
-  int n, h, w, ci, co;
-  int m;                // pixels: n h w
-  int ncols;            // co (3x3) or 4 co (convT)
-  int k;                // 9 ci (3x3) or ci (convT)
-  int kpad;             // k rounded up to BK
+  const float* scale;    // [co]
+  const float* bias;     // [co] or null
+  const float* snext;    // [co] (U8, S8, U8X2)
+  const float* snext2;   // [co] (U8X2)
+  void* y;               // [n, h, w, co] (3x3) or [n, 2h, 2w, co] (convT)
+  void* y2;              // U8X2's second codes, as y
+  int h, w, cip, co;
+  int ncols;             // co (3x3) or 4 co (convT)
+  int bw;                // a tile's pixel columns; bh = BM / bw rows
+  int tx, ty;            // tiles across a row of x, down an image
+  int ntn;               // column tiles
   int out;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-template <int VEC>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  if constexpr (VEC == 16)
-    cp_async16(dst, src, bytes);
-  else
-    cp_async4(dst, src, bytes);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
 }
 
-// The A rows a thread loads, fixed over the K loop: chunk i of the tile is
-// row i / CPR, byte (i % CPR) VEC, i = tid + j THREADS.
-template <int VEC>
-struct RowsA {
-  static constexpr int CPR = BK / VEC;
-  static constexpr int PER = BM * CPR / THREADS;
-  int ok[PER];          // pixel inside the GEMM
-  int nb[PER], py[PER], px[PER];
-};
-
-template <int VEC, bool CONVT>
-__device__ __forceinline__ void load_stage(const Args& a, int8_t* st,
-                                           const RowsA<VEC>& rows, int m0,
-                                           int n0, int k0, int tid) {
-  using R = RowsA<VEC>;
-  int8_t* sa = st;
-  int8_t* sb = st + BM * LDS;
-#pragma unroll
-  for (int j = 0; j < R::PER; ++j) {
-    const int i = tid + j * THREADS;
-    const int r = i / R::CPR;
-    const int kk = k0 + (i % R::CPR) * VEC;
-    const int8_t* src = a.x;
-    int bytes = 0;
-    if (rows.ok[j] && kk < a.k) {
-      if constexpr (CONVT) {
-        src = a.x + static_cast<size_t>(m0 + r) * a.ci + kk;
-        bytes = VEC;
-      } else {
-        const int tap = kk / a.ci;
-        const int ch = kk - tap * a.ci;
-        const int yy = rows.py[j] + tap / 3 - 1;
-        const int xx = rows.px[j] + tap % 3 - 1;
-        if (yy >= 0 && yy < a.h && xx >= 0 && xx < a.w) {
-          src = a.x + ((static_cast<size_t>(rows.nb[j]) * a.h + yy) * a.w +
-                       xx) * a.ci + ch;
-          bytes = VEC;
-        }
-      }
-    }
-    cp_async<VEC>(sa + r * LDS + (i % R::CPR) * VEC, src, bytes);
-  }
-  // B: 128 rows of 64 bytes, 16-byte chunks, two a thread
-#pragma unroll
-  for (int j = 0; j < (BN * BK / 16) / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    const int r = i / (BK / 16);
-    const int c = (i % (BK / 16)) * 16;
-    const int row = n0 + r;
-    const bool ok = row < a.ncols;
-    const int8_t* src = ok ? a.b + static_cast<size_t>(row) * a.kpad + k0 + c
-                           : a.b;
-    cp_async16(sb + r * LDS + c, src, ok ? 16 : 0);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait of 2^34 clocks (seconds) is a deadlock: trap, so the launch fails
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
 }
 
-// The epilogue of one accumulator in the out mode's type: the int32, the
-// f32's bits, or the int8 code in the low byte.
-__device__ __forceinline__ unsigned finish(const Args& a, int o, int acc) {
-  if (a.out == OUT_I32) return static_cast<unsigned>(acc);
-  float v = __fmul_rn(__int2float_rn(acc), a.scale[o]);
-  if (a.bias) v = __fadd_rn(v, a.bias[o]);
-  if (a.out == OUT_F32) return __float_as_uint(v);
-  const float lo = a.out == OUT_U8 ? 0.f : -127.f;
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, a.snext[o])), lo), 127.f);
-  return static_cast<unsigned>(static_cast<int>(q)) & 0xffu;
+// Box {CK, bw, bh, 1} of the 4-D map of x at (c, x, y, n); what lies
+// outside x lands as zeros.
+__device__ __forceinline__ void tma_x(uint32_t dst, const CUtensorMap* map,
+                                      int c, int x, int y, int n,
+                                      uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(n),
+      "r"(bar)
+      : "memory");
 }
 
-// Element index in y of GEMM row m (a pixel) and column col.
-template <bool CONVT>
-__device__ __forceinline__ size_t dest(const Args& a, int m, int col) {
-  if constexpr (!CONVT) {
-    return static_cast<size_t>(m) * a.co + col;
-  } else {
-    const int jj = m % a.w;
-    const int t = m / a.w;
-    const int ii = t % a.h;
-    const int nb = t / a.h;
-    const int d = col / a.co;
-    const int o = col - d * a.co;
-    return ((static_cast<size_t>(nb) * 2 * a.h + 2 * ii + (d >> 1)) * 2 *
-                a.w + 2 * jj + (d & 1)) * a.co + o;
-  }
+// Box {CK, BN} of the 2-D map of B at (k, col).
+__device__ __forceinline__ void tma_b(uint32_t dst, const CUtensorMap* map,
+                                      int k, int col, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(col), "r"(bar)
+      : "memory");
 }
 
-template <int VEC, bool CONVT>
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// wgmma descriptor of a K-major operand in the CK-byte swizzle starting at
+// shared address `addr`: rows of CK bytes, 8 rows a swizzle atom (stride
+// 8 CK); the leading offset is unused. Layout 1: 128-byte swizzle, 2:
+// 64-byte, 3: 32-byte.
+template <int CK>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t layout = CK == 128 ? 1 : CK == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)((8 * CK) >> 4) << 32 | layout << 62;
+}
+
+#define ACC8(i)                                                             \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[64] += A B, m64n128k32, s8 in, s32 accumulate, A (64 pixels x 32 k) and
+// B (32 k x 128 columns) both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "l"(a), "l"(b));
+}
+
+#undef ACC8
+
+// acc * scale[o] (+ bias[o]), rounded after each operation.
+__device__ __forceinline__ float dequant(const Args& a, int o, int acc) {
+  float v = __fmul_rn(__int2float_rn(acc), __ldg(a.scale + o));
+  if (a.bias) v = __fadd_rn(v, __ldg(a.bias + o));
+  return v;
+}
+
+// The int8 code of v at scale s, clamped to [lo, 127], in the low byte.
+__device__ __forceinline__ uint32_t code(float v, float s, float lo) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), lo), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
+}
+
+template <int CK, bool CONVT>
 __global__ void __launch_bounds__(THREADS, 2)
-    conv_i8(const Args a) {
-  extern __shared__ __align__(128) int8_t smem[];
+    conv_i8(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_b, const Args a) {
+  constexpr int STAGE_A = BM * CK, STAGE = (BM + BN) * CK;
+  constexpr int STAGES = RING / STAGE;
+  static_assert(STAGES >= 3 && STAGES <= 16, "ring");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES;
+  uint64_t* rows = reinterpret_cast<uint64_t*>(smem + OFF_ROWS);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 2) * 64;       // warp rows in the tile
-  const int wn = (warp & 3) * 32;        // warp columns in the tile
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
 
-  RowsA<VEC> rows;
-#pragma unroll
-  for (int j = 0; j < RowsA<VEC>::PER; ++j) {
-    const int m = m0 + (tid + j * THREADS) / RowsA<VEC>::CPR;
-    rows.ok[j] = m < a.m;
-    const int px = m % a.w;
-    const int t = m / a.w;
-    rows.px[j] = px;
-    rows.py[j] = t % a.h;
-    rows.nb[j] = t / a.h;
+  // the tile: column tile nt of pixel tile mt (image nb, rows y0.., x0..)
+  const int nt = blockIdx.x % a.ntn;
+  const int mt = blockIdx.x / a.ntn;
+  const int bh = BM / a.bw;
+  const int x0 = (mt % a.tx) * a.bw;
+  const int y0 = ((mt / a.tx) % a.ty) * bh;
+  const int nb = mt / a.tx / a.ty;
+  const int n0 = nt * BN;
+  const int cblocks = a.cip / CK;
+  const int nk = (CONVT ? 1 : 9) * cblocks;
+
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: stage kb of the K loop goes to slot kb % STAGES once the
+    // consumers have released what it held
+    if (tid == CONSUMERS) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(empty + 8 * s, ((kb / STAGES) & 1) ^ 1);
+        const int tap = kb / cblocks, cb = kb - tap * cblocks;
+        const int dy = CONVT ? 0 : tap / 3 - 1, dx = CONVT ? 0 : tap % 3 - 1;
+        const uint32_t st = base + s * STAGE;
+        mbar_expect_tx(full + 8 * s, STAGE);
+        tma_x(st, &map_x, cb * CK, x0 + dx, y0 + dy, nb, full + 8 * s);
+        tma_b(st + STAGE_A, &map_b, tap * a.cip + cb * CK, n0, full + 8 * s);
+      }
+    }
+    return;
   }
 
-  int acc[4][4][4];
+  // consumers: warpgroup wg multiplies pixels 64 wg .. 64 wg + 63
+  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  int acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
-
-  const int nk = a.kpad / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage<VEC, CONVT>(a, smem + s * STAGE_BYTES, rows, m0, n0, s * BK,
-                             tid);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
-  }
-
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
   for (int kb = 0; kb < nk; ++kb) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();
-    // refill the stage read STAGES - 1 steps ago (every warp is past it)
-    const int next = kb + STAGES - 1;
-    if (next < nk)
-      load_stage<VEC, CONVT>(a, smem + (next % STAGES) * STAGE_BYTES, rows,
-                             m0, n0, next * BK, tid);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
+    const int s = kb % STAGES;
+    mbar_wait(full + 8 * s, (kb / STAGES) & 1);
+    const uint32_t st = base + s * STAGE;
+    const uint64_t da = desc<CK>(st + wg * 64 * CK);
+    const uint64_t db = desc<CK>(st + STAGE_A);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < CK / 32; ++ks)  // 32 bytes on: 2 in 16-byte units
+      wgmma_s8(acc, da + 2 * ks, db + 2 * ks);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the previous stage's group is done: release its slot
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
 
-    const int8_t* sa = smem + (kb % STAGES) * STAGE_BYTES;
-    const int8_t* sb = sa + BM * LDS;
+  // epilogue. Every consumer is done with the ring (the producer's loads
+  // have all landed: each was waited on): it becomes the staging tile(s).
+  bar_sync(1, CONSUMERS);
+  if (tid < BM) {
+    const int yy = y0 + tid / a.bw, xx = x0 + tid % a.bw;
+    uint64_t off = NO_ROW;
+    if (yy < a.h && xx < a.w)
+      off = CONVT ? (((uint64_t)nb * 2 * a.h + 2 * yy) * 2 * a.w + 2 * xx) *
+                        a.co
+                  : (((uint64_t)nb * a.h + yy) * a.w + xx) * a.co;
+    rows[tid] = off;
+  }
+  const bool wide = a.out == OUT_I32 || a.out == OUT_F32;
+  const int es = wide ? 4 : 1;
+  const int ts = BN * es + 16;             // staged row stride, bytes
+  unsigned char* tile2 = smem + BM * ts;   // U8X2's second codes
+  const float lo = a.out == OUT_S8 ? -127.f : 0.f;
+  // acc[4 j + e]: pixel 64 wg + 16 (warp % 4) + lane / 4 + 8 (e >> 1),
+  // column 8 j + 2 (lane % 4) + (e & 1)
+  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      unsigned af[4][4];
-      unsigned bf[2][4];
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], sa + (wm + mt * 16 + (lane & 15)) * LDS + ks +
-                                (lane >> 4) * 16);
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int r = r0 + 8 * e2;
+      const int c = 8 * j + 2 * (lane & 3);
+      uint32_t u[2], u2[2];
 #pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4(bf[np], sb + (wn + np * 16 + (lane & 7) +
-                                  ((lane >> 4) << 3)) * LDS + ks +
-                                ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_s8(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
-                 bf[nt >> 1][(nt & 1) * 2 + 1]);
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + c + e;
+        const int v = acc[4 * j + 2 * e2 + e];
+        u[e] = u2[e] = 0;
+        if (col >= a.ncols) continue;
+        const int o = CONVT ? col % a.co : col;
+        if (a.out == OUT_I32) {
+          u[e] = static_cast<uint32_t>(v);
+          continue;
+        }
+        const float f = dequant(a, o, v);
+        if (a.out == OUT_F32) {
+          u[e] = __float_as_uint(f);
+          continue;
+        }
+        u[e] = code(f, __ldg(a.snext + o), lo);
+        if (a.out == OUT_U8X2) u2[e] = code(f, __ldg(a.snext2 + o), 0.f);
+      }
+      if (wide) {
+        *reinterpret_cast<uint2*>(smem + r * ts + c * 4) = make_uint2(u[0],
+                                                                      u[1]);
+      } else {
+        *reinterpret_cast<uint16_t*>(smem + r * ts + c) =
+            static_cast<uint16_t>(u[0] | u[1] << 8);
+        if (a.out == OUT_U8X2)
+          *reinterpret_cast<uint16_t*>(tile2 + r * ts + c) =
+              static_cast<uint16_t>(u2[0] | u2[1] << 8);
+      }
     }
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  bar_sync(1, CONSUMERS);
 
-  // epilogue: the tile's outputs into shared memory (c0, c1 at row g, cols
-  // 2t, 2t + 1; c2, c3 at row g + 8), then out in 16-byte row chunks: a
-  // tile row is one pixel's run of channels (3x3), or of one (di, dj)
-  // block's channels (convT), contiguous in y
-  __syncthreads();
-  const int es = a.out >= OUT_U8 ? 1 : 4;
-  const int ts = BN * es + 16;                 // tile row stride, bytes
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int r = wm + mt * 16 + g + (v >> 1) * 8;
-        const int c = wn + nt * 8 + t4 * 2 + (v & 1);
-        const int col = n0 + c;
-        if (col >= a.ncols) continue;
-        const unsigned u = finish(a, CONVT ? col % a.co : col, acc[mt][nt][v]);
-        if (es == 1)
-          smem[r * ts + c] = static_cast<int8_t>(u);
-        else
-          *reinterpret_cast<unsigned*>(smem + r * ts + c * 4) = u;
-      }
-  __syncthreads();
-  const int per = 16 / es;                     // columns a chunk
-  const int cpr = BN / per;                    // chunks a row
+  // out in 16-byte chunks, consecutive threads on consecutive chunks of a
+  // row; a row's columns (3x3) or each run of 2 co (convT) are contiguous
+  const int per = 16 / es;                 // columns a chunk
+  const int cpr = BN / per;                // chunks a row
   const int nc = min(BN, a.ncols - n0);
+  const int run = CONVT ? 2 * a.co : a.ncols;
+  const uint64_t gap = CONVT ? (uint64_t)2 * a.w * a.co : 0;  // di's stride
   const bool vec = (a.co * es) % 16 == 0;
-  int8_t* y = static_cast<int8_t*>(a.y);
-  for (int i = tid; i < BM * cpr; i += THREADS) {
-    const int r = i / cpr;
+  const int ntile = a.out == OUT_U8X2 ? 2 : 1;
+  for (int i = tid; i < ntile * BM * cpr; i += CONSUMERS) {
+    const int t = i / (BM * cpr);
+    const int r = (i / cpr) % BM;
     const int c = (i % cpr) * per;
-    const int m = m0 + r;
-    if (m >= a.m || c >= nc) continue;
-    const int8_t* src = smem + r * ts + c * es;
+    const uint64_t off = rows[r];
+    if (off == NO_ROW || c >= nc) continue;
+    const unsigned char* src = (t ? tile2 : smem) + r * ts + c * es;
+    unsigned char* y = static_cast<unsigned char*>(t ? a.y2 : a.y);
+    const int col = n0 + c;
     if (vec && c + per <= nc) {
-      *reinterpret_cast<int4*>(y + dest<CONVT>(a, m, n0 + c) * es) =
+      const uint64_t at = off + (col / run) * gap + col % run;
+      *reinterpret_cast<int4*>(y + at * es) =
           *reinterpret_cast<const int4*>(src);
     } else {
       for (int k = 0; k < per && c + k < nc; ++k) {
-        int8_t* dst = y + dest<CONVT>(a, m, n0 + c + k) * es;
-        for (int bt = 0; bt < es; ++bt) dst[bt] = src[k * es + bt];
+        const uint64_t at = off + ((col + k) / run) * gap + (col + k) % run;
+        for (int bt = 0; bt < es; ++bt) y[at * es + bt] = src[k * es + bt];
       }
     }
   }
 }
 
-template <int VEC, bool CONVT>
-cudaError_t launch(const Args& a, cudaStream_t st) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_i8<VEC, CONVT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
+// cuTensorMapEncodeTiled, reached through the runtime so nothing links
+// libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
+
+// A map of int8 elements, `rank` dims innermost first, box `box`, in the
+// ck-byte swizzle; elements outside the tensor load as zeros.
+int make_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
+             const cuuint32_t* box, int ck) {
+  cuuint64_t strides[3];
+  cuuint64_t s = 1;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = ck == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : ck == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode_tiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int CK, bool CONVT>
+cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mb,
+                   const Args& a, int grid, cudaStream_t st) {
+  static unsigned ready = 0;  // a bit a device: the attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!(ready >> dev & 1u)) {
+    err = cudaFuncSetAttribute(conv_i8<CK, CONVT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
     if (err != cudaSuccess) return err;
-    ready = true;
+    ready |= 1u << dev;
   }
-  dim3 grid((a.m + BM - 1) / BM, (a.ncols + BN - 1) / BN);
-  conv_i8<VEC, CONVT><<<grid, THREADS, SMEM, st>>>(a);
+  conv_i8<CK, CONVT><<<grid, THREADS, SMEM, st>>>(mx, mb, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [n, h, w, ci] int8 NHWC; b [ncols, kpad] int8 (ops/conv_i8.py lays it
-// out); y as the out mode says. convt: 0 for the 3x3 SAME conv, 1 for the
-// 2x2 stride-2 transposed conv. vec: 16 (ci a multiple of 16) or 4 (ci a
-// multiple of 4). Returns the CUDA error of the launch (0: launched).
+// x [n, h, w, cip] int8 NHWC; b [ncols, kpad] int8 (ops/conv_i8.py lays it
+// out, kpad = 9 cip or cip); y (and y2) as the out mode says. convt: 0 for
+// the 3x3 SAME conv, 1 for the 2x2 stride-2 transposed conv. ck: the K step
+// (128, 64 or 32 bytes; cip a multiple of it); bw: a tile's pixel columns
+// (a power of two up to 128). Returns the CUDA error of the launch (0:
+// launched).
 extern "C" int onet_conv_i8(const void* x, const void* b, const void* scale,
-                            const void* bias, const void* snext, void* y,
-                            int n, int h, int w, int ci, int co, int kpad,
-                            int convt, int vec, int out, void* stream) {
+                            const void* bias, const void* snext,
+                            const void* snext2, void* y, void* y2, int n,
+                            int h, int w, int cip, int co, int convt, int ck,
+                            int bw, int out, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || co <= 0 || out < 0 || out > OUT_U8X2 ||
+      (ck != 32 && ck != 64 && ck != 128) || cip % ck || bw < 1 ||
+      bw > BM || BM % bw || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(b) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (!encode_tiled) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorSymbolNotFound;
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  }
   Args a;
-  a.x = static_cast<const int8_t*>(x);
-  a.b = static_cast<const int8_t*>(b);
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
   a.snext = static_cast<const float*>(snext);
+  a.snext2 = static_cast<const float*>(snext2);
   a.y = y;
-  a.n = n;
+  a.y2 = y2;
   a.h = h;
   a.w = w;
-  a.ci = ci;
+  a.cip = cip;
   a.co = co;
-  a.m = n * h * w;
   a.ncols = convt ? 4 * co : co;
-  a.k = convt ? ci : 9 * ci;
-  a.kpad = kpad;
+  a.bw = bw;
+  a.tx = (w + bw - 1) / bw;
+  a.ty = (h + BM / bw - 1) / (BM / bw);
+  a.ntn = (a.ncols + BN - 1) / BN;
   a.out = out;
-  if (a.m <= 0 || a.kpad % BK || a.kpad < a.k || (vec != 16 && vec != 4) ||
-      ci % vec)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const long grid = (long)n * a.tx * a.ty * a.ntn;
+  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int kpad = (convt ? 1 : 9) * cip;
+  CUtensorMap mx, mb;
+  const cuuint64_t dx[4] = {(cuuint64_t)cip, (cuuint64_t)w, (cuuint64_t)h,
+                            (cuuint64_t)n};
+  const cuuint32_t bx[4] = {(cuuint32_t)ck, (cuuint32_t)bw,
+                            (cuuint32_t)(BM / bw), 1};
+  const cuuint64_t db[2] = {(cuuint64_t)kpad, (cuuint64_t)a.ncols};
+  const cuuint32_t bb[2] = {(cuuint32_t)ck, (cuuint32_t)BN};
+  int bad = make_map(&mx, x, 4, dx, bx, ck);
+  if (!bad) bad = make_map(&mb, b, 2, db, bb, ck);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (convt)
-    err = vec == 16 ? launch<16, true>(a, st) : launch<4, true>(a, st);
+    err = ck == 128  ? launch<128, true>(mx, mb, a, (int)grid, st)
+          : ck == 64 ? launch<64, true>(mx, mb, a, (int)grid, st)
+                     : launch<32, true>(mx, mb, a, (int)grid, st);
   else
-    err = vec == 16 ? launch<16, false>(a, st) : launch<4, false>(a, st);
-  return static_cast<int>(err);
+    err = ck == 128  ? launch<128, false>(mx, mb, a, (int)grid, st)
+          : ck == 64 ? launch<64, false>(mx, mb, a, (int)grid, st)
+                     : launch<32, false>(mx, mb, a, (int)grid, st);
+  return (int)err;
+}
+
+// Blocks of conv_i8<ck, convt> an SM can hold (the design wants 2), or
+// -(CUDA error).
+extern "C" int onet_conv_i8_occupancy(int ck, int convt) {
+  int blocks = 0;
+  const void* fn =
+      convt ? (ck == 128  ? (const void*)conv_i8<128, true>
+               : ck == 64 ? (const void*)conv_i8<64, true>
+                          : (const void*)conv_i8<32, true>)
+            : (ck == 128  ? (const void*)conv_i8<128, false>
+               : ck == 64 ? (const void*)conv_i8<64, false>
+                          : (const void*)conv_i8<32, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                        SMEM);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

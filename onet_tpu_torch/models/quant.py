@@ -17,8 +17,9 @@ bf16 folded graph (``tests/test_torch_quant.py``; ``chip_smoke.py`` phase
 10 at full width on a trained checkpoint).
 
 The int8 convs run on ``ops/conv_i8.py`` (hand-written kernels on the
-card, their plain versions on the CPU), the requantization of a conv with
-one consumer fused into its epilogue. The parameters ``q`` keep the JAX
+card, their plain versions on the CPU), the requantization fused into the
+epilogue: of a conv with one consumer, and of down1-3.conv2, whose output
+feeds a skip and the next conv, to both consumers' codes in one launch. The parameters ``q`` keep the JAX
 package's keys and leaves: per site ``wq`` (int8 HWIO), ``sw`` and ``b``
 (f32), the ``scales`` dict and the float ``in_scale``. Scale arithmetic
 divides by tensors, never by a Python scalar: PyTorch's CUDA kernels turn
@@ -265,6 +266,14 @@ def _cbr_q(xq, site, s_next):
     return _conv_i8(xq, site, requant="unsigned", s_next=s_next)
 
 
+def _cbr_q2(xq, site, s_a, s_b):
+    """conv + bias, ReLU and the requantization to two consumers' codes
+    (``_requant`` of one ``_conv_i8`` at ``s_a`` and at ``s_b``) in one
+    kernel: no f32 tensor is written."""
+    return _conv_i8(xq, site, requant=("unsigned", "unsigned"),
+                    s_next=(s_a, s_b))
+
+
 def _pool_q(xq):
     """2x2 max-pool of int8 codes with floor semantics (odd sizes crop)."""
     n, h, w, c = xq.shape
@@ -325,16 +334,16 @@ def onet_infer_q(q, x, *, bias: float = 0.0, head_bf16: bool = True,
     feats = [None]
     skip_scale = {1: s["up3.conv1:skip"], 2: s["up2.conv1:skip"],
                   3: s["up1.conv1:skip"]}
-    hf = _conv_i8(xb, q["down1.conv2"])
-    feats.append(_requant(hf, skip_scale[1]))   # int8 skip codes
-    hq = _requant(hf, s["down2.conv1"])
+    # int8 skip codes and the next conv's, from one launch
+    skq, hq = _cbr_q2(xb, q["down1.conv2"], skip_scale[1], s["down2.conv1"])
+    feats.append(skq)
     for i in range(2, 5):
         hq = _pool_q(hq)
         hq = _cbr_q(hq, q[f"down{i}.conv1"], s[f"down{i}.conv2"])
         if i < 4:
-            hf = _conv_i8(hq, q[f"down{i}.conv2"])
-            feats.append(_requant(hf, skip_scale[i]))
-            hq = _requant(hf, s[f"down{i+1}.conv1"])
+            skq, hq = _cbr_q2(hq, q[f"down{i}.conv2"], skip_scale[i],
+                              s[f"down{i+1}.conv1"])
+            feats.append(skq)
         else:                                   # the bottleneck: no skip
             hq = _cbr_q(hq, q["down4.conv2"], s["up1.up"])
     y = hq

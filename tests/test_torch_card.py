@@ -718,3 +718,96 @@ def test_int8_artifact_from_the_cpu_serves_on_the_card(dev, tmp_path):
     assert s.device.type == "cuda" and labels.dtype == torch.int32
     assert torch.equal(labels, l_live.to(torch.int32))
     torch.testing.assert_close(s, s_live, rtol=0, atol=0)
+
+
+# the TMA tiling's edges: (convT, n, h, w, ci, co). W not a multiple of the
+# box width (200, 40, 70, 130, 33), boxes past an image's last row (bh 2
+# at h 9, bh 32 at h 7), ci 2 / 6 / 16 (padded to 32), 64, 128, 1024,
+# co under 8 and not a multiple of 8 (5, 7, 3, 12, 20, 130), M under one
+# tile (16, 21, 10 pixels)
+I8_EDGE_SHAPES = [
+    (False, 1, 5, 200, 16, 24),
+    (False, 2, 9, 40, 64, 130),
+    (False, 1, 7, 3, 1024, 5),
+    (False, 2, 33, 17, 6, 12),
+    (False, 1, 4, 4, 2, 7),
+    (False, 1, 12, 70, 128, 64),
+    (False, 4, 32, 32, 128, 128),
+    (True, 1, 3, 130, 16, 3),
+    (True, 2, 9, 33, 128, 20),
+    (True, 1, 2, 5, 1024, 64),
+    (True, 1, 6, 64, 64, 8),
+]
+I8_MODES = ["acc", None, "unsigned", "signed", "pair"]
+
+
+def _i8_call(fn, x, wq, scale, bias, s_next, mode):
+    """One call in out mode ``mode`` ("acc": the int32 accumulator;
+    "pair": the two unsigned code tensors at s_next and s_next / 2)."""
+    if mode == "acc":
+        return fn(x, wq)
+    if mode == "pair":
+        return fn(x, wq, scale, bias, requant=("unsigned", "unsigned"),
+                  s_next=(s_next, s_next / 2))
+    return fn(x, wq, scale, bias, requant=mode,
+              s_next=None if mode is None else s_next)
+
+
+def _i8_equal(y, want):
+    if isinstance(want, tuple):
+        assert isinstance(y, tuple) and len(y) == len(want)
+        for a, b in zip(y, want):
+            _i8_equal(a, b)
+        return
+    assert y.dtype == want.dtype and y.shape == want.shape
+    assert torch.equal(y, want), int((y != want).sum())
+
+
+@pytest.mark.parametrize("mode", I8_MODES)
+@pytest.mark.parametrize("shape", I8_SHAPES + I8_EDGE_SHAPES)
+def test_conv_i8_every_mode_at_the_tiling_edges(dev, shape, mode):
+    """Every out mode, U8X2 too, of both kernels bit-equal to the plain
+    version (float64 on the codes) at the tiling's edge shapes; one launch
+    a call."""
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    convt = shape[0]
+    x, wq, scale, bias, s_next = _i8_operands(dev, *shape, seed=11)
+    fn = CI.convT2x2_i8 if convt else CI.conv3x3_i8
+    plain = CI.convT2x2_i8_plain if convt else CI.conv3x3_i8_plain
+    before = fn.launches
+    y = _i8_call(fn, x, wq, scale, bias, s_next, mode)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _i8_equal(y, _i8_call(plain, x, wq, scale, bias, s_next, mode))
+
+
+@pytest.mark.parametrize("ck", [32, 64, 128])
+@pytest.mark.parametrize("convt", [False, True])
+def test_conv_i8_every_k_step_matches_plain(dev, convt, ck):
+    """Each K step and swizzle (32, 64, 128 bytes) the kernel has, forced
+    at ci 256, bit-equal to the plain version."""
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    x, wq, scale, bias, s_next = _i8_operands(dev, convt, 2, 9, 40, 256, 72,
+                                              seed=12)
+    xk, b, p = CI.operands(x, wq, convt, ck=ck)
+    assert p.ck == ck
+    y = CI.kernel(xk, b, p, 72, scale, bias, (s_next, s_next / 3),
+                  CI.OUT_U8X2, convt)
+    acc = CI.kernel(xk, b, p, 72, None, None, None, CI.OUT_I32, convt)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, CI.plain(x, wq, None, None, None, CI.OUT_I32,
+                                     convt))
+    _i8_equal(y, CI.plain(x, wq, scale, bias, (s_next, s_next / 3),
+                          CI.OUT_U8X2, convt))
+
+
+def test_conv_i8_two_ctas_an_sm(dev):
+    """The design's occupancy: two CTAs an SM for every instantiation (one
+    CTA's epilogue overlaps the other's products)."""
+    from onet_tpu_torch.ops import conv_i8 as CI
+
+    for convt in (False, True):
+        for ck in (32, 64, 128):
+            assert CI.occupancy(ck, convt) == 2, (ck, convt)

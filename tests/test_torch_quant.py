@@ -200,6 +200,208 @@ def test_int8_ops_trace_as_custom_ops():
     torch.testing.assert_close(prog.module()(x), M()(x), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["3x3", "T"])
+def test_two_code_epilogue_equals_two_requants(kind):
+    """requant=("unsigned", "unsigned"): the plain version's two code
+    tensors equal two "unsigned" calls, and (3x3) the JAX package's two
+    ``_requant``s of one ``_conv_i8``, bit for bit."""
+    rng = np.random.default_rng(4)
+    kh = 3 if kind == "3x3" else 2
+    x = rng.integers(0, 128, (2, 9, 11, 32)).astype(np.int8)
+    w = rng.integers(-127, 128, (kh, kh, 32, 24)).astype(np.int8)
+    sw = (rng.uniform(0.5, 2, 24) * 1e-4).astype(np.float32)
+    b = rng.normal(size=24).astype(np.float32)
+    sa, sb = (rng.uniform(0.01, 0.05, 24).astype(np.float32)
+              for _ in range(2))
+    fn = CI.conv3x3_i8 if kind == "3x3" else CI.convT2x2_i8
+    t = [torch.from_numpy(a) for a in (x, w, sw, b, sa, sb)]
+    ya, yb = fn(*t[:4], requant=("unsigned", "unsigned"), s_next=(t[4], t[5]))
+    assert ya.dtype == yb.dtype == torch.int8
+    for got, s in ((ya, t[4]), (yb, t[5])):
+        assert torch.equal(got, fn(*t[:4], requant="unsigned", s_next=s))
+    if kind == "3x3":
+        site = {"wq": jnp.asarray(w), "sw": jnp.asarray(sw),
+                "b": jnp.asarray(b)}
+        with jax.disable_jit():
+            y = JQ._conv_i8(jnp.asarray(x), site)
+            want = [JQ._requant(y, jnp.asarray(s)) for s in (sa, sb)]
+        np.testing.assert_array_equal(ya.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(yb.numpy(), np.asarray(want[1]))
+
+
+# the int8 graph's launches at full width (base 64, 512^2, batch 8): site,
+# transposed, x [n, h, w, ci], co
+SITES_512 = [
+    ("inc.conv1", False, (8, 512, 512, 2), 128),
+    ("inc.conv2", False, (8, 512, 512, 128), 128),
+    ("down1.conv1", False, (8, 256, 256, 128), 256),
+    ("down1.conv2", False, (16, 256, 256, 128), 128),
+    ("down2.conv1", False, (16, 128, 128, 128), 256),
+    ("down2.conv2", False, (16, 128, 128, 256), 256),
+    ("down3.conv1", False, (16, 64, 64, 256), 512),
+    ("down3.conv2", False, (16, 64, 64, 512), 512),
+    ("down4.conv1", False, (16, 32, 32, 512), 1024),
+    ("down4.conv2", False, (16, 32, 32, 1024), 1024),
+    ("up1.up", True, (16, 32, 32, 1024), 512),
+    ("up1.conv1", False, (16, 64, 64, 1024), 512),
+    ("up1.conv2", False, (16, 64, 64, 512), 512),
+    ("up2.up", True, (16, 64, 64, 512), 256),
+    ("up2.conv1", False, (16, 128, 128, 512), 256),
+    ("up2.conv2", False, (16, 128, 128, 256), 256),
+    ("up3.up", True, (16, 128, 128, 256), 128),
+    ("up3.conv1", False, (16, 256, 256, 256), 128),
+    ("up3.conv2", False, (16, 256, 256, 128), 128),
+    ("up4.up", True, (8, 256, 256, 256), 128),
+    ("up4.conv1", False, (8, 512, 512, 256), 128),
+    ("up4.conv2", False, (8, 512, 512, 128), 128),
+]
+# odd shapes: W not a multiple of the box, past the last row, ci classes,
+# co under 8, M under one tile
+ODD_SHAPES = [
+    (False, (1, 5, 200, 16), 24), (False, (2, 9, 40, 64), 130),
+    (False, (1, 7, 3, 1024), 5), (False, (2, 33, 17, 6), 12),
+    (False, (1, 4, 4, 2), 7), (False, (3, 13, 11, 48), 200),
+    (True, (1, 3, 130, 16), 3), (True, (2, 9, 33, 128), 20),
+    (True, (1, 2, 5, 1024), 64), (True, (1, 5, 13, 48), 100),
+    (False, (1, 1, 1, 1), 1),
+]
+
+
+def _plan_holds(convt, xs, co, ck=None):
+    """The kernel's plan at one shape: TMA's limits, a tile of 128 pixels
+    that the grid's tiles cover once, K steps that cover K."""
+    n, h, w, ci = xs
+    p = CI.plan(n, h, w, ci, co, convt, ck)
+    assert p.cip >= ci and p.cip - ci < 64 and p.cip % 16 == 0  # strides
+    assert p.cip == 32 or p.cip % 64 == 0
+    assert p.ck in (32, 64, 128) and p.cip % p.ck == 0
+    assert p.stages == CI.RING // (256 * p.ck) >= 3
+    assert p.bw * p.bh == 128 and p.bw & (p.bw - 1) == 0
+    assert max(p.bw, p.bh, p.ck) <= 256                        # box dims
+    assert (p.tx - 1) * p.bw < w <= p.tx * p.bw
+    assert (p.ty - 1) * p.bh < h <= p.ty * p.bh
+    assert p.bw >= min(w, 128)
+    assert p.ncols == (4 if convt else 1) * co
+    assert (p.ntn - 1) * 128 < p.ncols <= p.ntn * 128
+    assert p.kpad == (1 if convt else 9) * p.cip
+    assert p.grid == n * p.tx * p.ty * p.ntn < 2 ** 31
+    return p
+
+
+def test_plan_at_every_site_and_odd_shapes():
+    """Full width: boxes of 1 x 128 pixels at W >= 128, 2 x 64 at 64,
+    4 x 32 at 32, no channel padding but inc.conv1's (2 -> 32), 128-byte
+    K steps; odd shapes and forced K steps hold the plan's invariants."""
+    want_box = {512: (1, 128), 256: (1, 128), 128: (1, 128), 64: (2, 64),
+                32: (4, 32)}
+    for name, convt, xs, co in SITES_512:
+        p = _plan_holds(convt, xs, co)
+        assert (p.bh, p.bw) == want_box[xs[2]], name
+        assert p.cip == (32 if name == "inc.conv1" else xs[3]), name
+        assert p.ck == (32 if name == "inc.conv1" else 128), name
+        assert p.stages == (12 if name == "inc.conv1" else 3), name
+    for convt, xs, co in ODD_SHAPES:
+        _plan_holds(convt, xs, co)
+    for ck in (32, 64, 128):
+        assert _plan_holds(False, (2, 9, 40, 256), 72, ck).ck == ck
+    with pytest.raises(ValueError):
+        CI.plan(1, 4, 4, 64, 8, False, ck=128)   # 128 does not divide 64
+
+
+def test_plan_at_base_8(monkeypatch):
+    """Every int8 launch of a base-8 graph (32^2, and 50^2: odd mid-net)
+    has a plan that holds, one launch a site (16 3x3 with the bf16 head,
+    18 without, 4 transposed; the two-code sites once each)."""
+    p, s = onet_init(torch.Generator().manual_seed(5), 1, base=8,
+                     device="cpu")
+    with torch.no_grad():
+        tf = fold_onet(p, s)
+    seen, real = [], CI.plain
+
+    def record(x, w, scale, bias, s_next, mode, convt):
+        seen.append((convt, tuple(x.shape), w.shape[3], mode))
+        return real(x, w, scale, bias, s_next, mode, convt)
+
+    monkeypatch.setattr(CI, "plain", record)
+    for hw in (32, 50):
+        x = torch.from_numpy(_blobs(2, hw))
+        with torch.no_grad():
+            q = TQ.quantize_folded(tf, TQ.calibrate(tf, x))
+            for hb in (True, False):
+                seen.clear()
+                TQ.onet_infer_q(q, x, head_bf16=hb)
+                assert sum(not c for c, *_ in seen) == (16 if hb else 18)
+                assert sum(c for c, *_ in seen) == 4
+                assert [m for *_, m in seen].count(CI.OUT_U8X2) == 3
+                for convt, xs, co, _ in seen:
+                    _plan_holds(convt, xs, co)
+
+
+def _emulate(x, w, convt, ck=None):
+    """The kernel's tiling, on the CPU: each CTA's K steps as TMA boxes
+    (zeros outside x and past B's columns), their product, and the
+    epilogue's row offsets and runs into y. Returns the int32 accumulator
+    and how many times each element of y was written."""
+    xk, b, p = CI.operands(x, w, convt, ck)
+    n, h, wd, cip = xk.shape
+    co = w.shape[3]
+    bh, bw = p.bh, p.bw
+    pad = torch.zeros((n, h + bh + 2, wd + bw + 2, cip), dtype=torch.float64)
+    pad[:, 1:h + 1, 1:wd + 1] = xk.double()
+    bpad = torch.zeros((p.ntn * 128, p.kpad), dtype=torch.float64)
+    bpad[:p.ncols] = b.double()
+    oshape = (n, 2 * h, 2 * wd, co) if convt else (n, h, wd, co)
+    y = torch.zeros(oshape, dtype=torch.int64).view(-1)
+    hits = torch.zeros_like(y)
+    run = 2 * co if convt else p.ncols
+    gap = 2 * wd * co if convt else 0
+    taps = [(0, 0)] if convt else [(dy, dx) for dy in (-1, 0, 1)
+                                   for dx in (-1, 0, 1)]
+    for cta in range(p.grid):
+        nt, mt = cta % p.ntn, cta // p.ntn
+        x0, y0 = (mt % p.tx) * bw, (mt // p.tx) % p.ty * bh
+        nb, n0 = mt // p.tx // p.ty, nt * 128
+        acc = torch.zeros((128, 128), dtype=torch.float64)
+        for t, (dy, dx) in enumerate(taps):
+            for c0 in range(0, cip, p.ck):
+                a = pad[nb, 1 + y0 + dy:1 + y0 + dy + bh,
+                        1 + x0 + dx:1 + x0 + dx + bw, c0:c0 + p.ck]
+                k0 = t * cip + c0
+                acc += a.reshape(128, p.ck) @ bpad[n0:n0 + 128,
+                                                   k0:k0 + p.ck].T
+        for r in range(128):
+            yy, xx = y0 + r // bw, x0 + r % bw
+            if yy >= h or xx >= wd:
+                continue
+            off = (((nb * 2 * h + 2 * yy) * 2 * wd + 2 * xx) * co if convt
+                   else ((nb * h + yy) * wd + xx) * co)
+            cols = torch.arange(n0, min(n0 + 128, p.ncols))
+            at = off + cols // run * gap + cols % run
+            y[at] = acc[r, cols - n0].round().long()
+            hits[at] += 1
+    return y.view(oshape).to(torch.int32), hits
+
+
+@pytest.mark.parametrize("convt,xs,co,ck", [
+    (False, (2, 9, 40, 64), 130, None), (False, (1, 7, 3, 6), 5, None),
+    (False, (1, 5, 200, 16), 24, None), (False, (2, 4, 9, 256), 12, 64),
+    (True, (2, 9, 33, 128), 20, 64), (True, (1, 3, 130, 16), 3, None),
+    (True, (1, 4, 6, 48), 8, None)])
+def test_kernel_tiling_emulated_equals_plain(convt, xs, co, ck):
+    """The tiling the kernel runs (plan, operand layout, box coordinates,
+    row offsets and runs), modelled on the CPU, writes every output once
+    and equals the plain accumulator."""
+    rng = np.random.default_rng(sum(xs) + co)
+    kh = 2 if convt else 3
+    x = torch.from_numpy(rng.integers(-127, 128, xs).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (kh, kh, xs[3], co))
+                         .astype(np.int8))
+    y, hits = _emulate(x, w, convt, ck)
+    assert bool((hits == 1).all())
+    want = CI.plain(x, w, None, None, None, CI.OUT_I32, convt)
+    assert torch.equal(y, want)
+
+
 # ---------------------------------------------------------------------------
 # quantization
 # ---------------------------------------------------------------------------
