@@ -77,13 +77,14 @@ namespace {
 
 constexpr int BM = 128;                  // pixels of a tile
 constexpr int BN = 128;                  // columns of a tile
-constexpr int CONSUMERS = 256;           // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int THREADS = 256;             // two consumer warpgroups
 constexpr int RING = 96 * 1024;          // the stage ring, bytes
 constexpr int OFF_BAR = RING;            // 2 x at most 12 stages x 8 bytes
 constexpr int OFF_ROWS = RING + 256;     // 128 row offsets in y
-constexpr int SMEM = OFF_ROWS + BM * 8 + 1024;  // + alignment slack
+constexpr int OFF_COLS = OFF_ROWS + BM * 8;  // 5 x 128 column constants
+constexpr int SMEM = OFF_COLS + 5 * BN * 4 + 1024;  // + alignment slack
 constexpr uint64_t NO_ROW = ~0ull;       // a tile row outside y
+static_assert(2 * (SMEM + 1024) <= 233472, "two CTAs an SM");
 
 enum { OUT_I32 = 0, OUT_F32 = 1, OUT_U8 = 2, OUT_S8 = 3, OUT_U8X2 = 4 };
 
@@ -99,8 +100,25 @@ struct Args {
   int bw;                // a tile's pixel columns; bh = BM / bw rows
   int tx, ty;            // tiles across a row of x, down an image
   int ntn;               // column tiles
+  int tiles;             // n tx ty ntn
   int out;
 };
+
+// Tile t: column tile t % ntn of pixel tile t / ntn (image nb, first row
+// y0, first column x0), first column n0.
+struct Tile {
+  int nb, y0, x0, n0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
+  const int mt = t / a.ntn;
+  Tile tl;
+  tl.n0 = (t - mt * a.ntn) * BN;
+  tl.x0 = (mt % a.tx) * a.bw;
+  tl.y0 = ((mt / a.tx) % a.ty) * (BM / a.bw);
+  tl.nb = mt / a.tx / a.ty;
+  return tl;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -207,17 +225,95 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
 
 #undef ACC8
 
-// acc * scale[o] (+ bias[o]), rounded after each operation.
-__device__ __forceinline__ float dequant(const Args& a, int o, int acc) {
-  float v = __fmul_rn(__int2float_rn(acc), __ldg(a.scale + o));
-  if (a.bias) v = __fadd_rn(v, __ldg(a.bias + o));
-  return v;
+// The int8 code of v at scale s, clamped to [lo, 127], in the low byte:
+// clamp(rint(v / s), lo, 127) with the division correctly rounded. q is
+// held to [-256, 256] (a NaN goes to -256: the clamp gives lo, as the
+// clamp of rint(NaN) does), then 1.5 2^23 + q rounds q half to even into
+// the low bits of the sum: rint and the conversion to int in one add.
+__device__ __forceinline__ uint32_t code(float v, float s, int lo) {
+  const float q = fminf(fmaxf(__fdiv_rn(v, s), -256.f), 256.f);
+  const int c = __float_as_int(__fadd_rn(q, 12582912.f)) - 0x4B400000;
+  return static_cast<uint32_t>(max(min(c, 127), lo)) & 0xffu;
 }
 
-// The int8 code of v at scale s, clamped to [lo, 127], in the low byte.
-__device__ __forceinline__ uint32_t code(float v, float s, float lo) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), lo), 127.f);
-  return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
+// The epilogue of one tile: acc (as wgmma leaves it) through the out
+// mode into `stg` (a ring slot, 256 CK bytes), then out to y in 16-byte
+// chunks. A pass stages `pc` columns of one output tensor, 2 CK bytes a
+// row, the 16-byte chunks of row r XOR-swizzled by r (no bank conflicts);
+// consecutive threads store consecutive chunks of a row: a 3x3 row's
+// columns are contiguous in y, and so is each run of 2 co columns (dj, o)
+// of a transposed-conv row (cofs). nc: the tile's columns inside y.
+template <int CK>
+__device__ __forceinline__ void epilogue(
+    const Args& a, const int (&acc)[64], unsigned char* stg,
+    const uint64_t* rows, const float* cs, const float* cb, const float* cn,
+    const float* cn2, const int* cofs, int nc) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool wide = a.out == OUT_I32 || a.out == OUT_F32;
+  const int es = wide ? 4 : 1;
+  const int pc = min(BN, 2 * CK / es);   // columns a pass
+  const int rs = pc * es;                // bytes of a staged row
+  const int nch = rs >> 4;               // its 16-byte chunks: 4 to 16
+  const int per = 16 / es;               // columns a chunk
+  const int lo = a.out == OUT_S8 ? -127 : 0;
+  const bool vec = (a.co * es) % 16 == 0;
+  // acc[4 j + e]: row r0 + 8 (e >> 1), column 8 j + 2 (lane % 4) + (e & 1)
+  const int r0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int blocks = BN / pc;
+  for (int ps = 0; ps < (a.out == OUT_U8X2 ? 2 : 1) * blocks; ++ps) {
+    const bool second = ps >= blocks;
+    const int cl = (ps - (second ? blocks : 0)) * pc;
+    const float* sn = second ? cn2 : cn;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (8 * j < cl || 8 * j >= cl + pc) continue;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int r = r0 + 8 * e2;
+        const int c = 8 * j + 2 * (lane & 3);
+        uint32_t u[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = acc[4 * j + 2 * e2 + e];
+          if (a.out == OUT_I32) {
+            u[e] = static_cast<uint32_t>(v);
+            continue;
+          }
+          // acc * scale (+ bias), rounded after each operation
+          float f = __fmul_rn(__int2float_rn(v), cs[c + e]);
+          if (a.bias) f = __fadd_rn(f, cb[c + e]);
+          u[e] = a.out == OUT_F32 ? __float_as_uint(f)
+                                  : code(f, sn[c + e], lo);
+        }
+        const int ob = (c - cl) * es;
+        unsigned char* dst =
+            stg + r * rs + (((ob >> 4) ^ (r & (nch - 1))) << 4) + (ob & 15);
+        if (wide)
+          *reinterpret_cast<uint2*>(dst) = make_uint2(u[0], u[1]);
+        else
+          *reinterpret_cast<uint16_t*>(dst) =
+              static_cast<uint16_t>(u[0] | u[1] << 8);
+      }
+    }
+    bar_sync(1, THREADS);
+    unsigned char* y = static_cast<unsigned char*>(second ? a.y2 : a.y);
+    for (int i = tid; i < BM * nch; i += THREADS) {
+      const int r = i / nch, k = i - r * nch;
+      const int c = cl + k * per;
+      const uint64_t off = rows[r];
+      if (off == NO_ROW || c >= nc) continue;
+      const unsigned char* src = stg + r * rs + ((k ^ (r & (nch - 1))) << 4);
+      if (vec && c + per <= nc) {
+        *reinterpret_cast<int4*>(y + (off + cofs[c]) * es) =
+            *reinterpret_cast<const int4*>(src);
+      } else {
+        for (int q = 0; q < per && c + q < nc; ++q)
+          for (int bt = 0; bt < es; ++bt)
+            y[(off + cofs[c + q]) * es + bt] = src[q * es + bt];
+      }
+    }
+    bar_sync(1, THREADS);  // read before it is restaged or released
+  }
 }
 
 template <int CK, bool CONVT>
@@ -226,7 +322,7 @@ __global__ void __launch_bounds__(THREADS, 2)
             const __grid_constant__ CUtensorMap map_b, const Args a) {
   constexpr int STAGE_A = BM * CK, STAGE = (BM + BN) * CK;
   constexpr int STAGES = RING / STAGE;
-  static_assert(STAGES >= 3 && STAGES <= 16, "ring");
+  static_assert(STAGES >= 3 && STAGES <= 12, "ring");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle atoms need 1024-byte alignment
   const uint32_t raw = smem_addr(smem_raw);
@@ -234,158 +330,113 @@ __global__ void __launch_bounds__(THREADS, 2)
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES;
   uint64_t* rows = reinterpret_cast<uint64_t*>(smem + OFF_ROWS);
+  // per column of the tile: scale, bias, snext, snext2, offset in a row
+  float* cs = reinterpret_cast<float*>(smem + OFF_COLS);
+  float* cb = cs + BN;
+  float* cn = cb + BN;
+  float* cn2 = cn + BN;
+  int* cofs = reinterpret_cast<int*>(cn2 + BN);
   const int tid = threadIdx.x;
-
-  // the tile: column tile nt of pixel tile mt (image nb, rows y0.., x0..)
-  const int nt = blockIdx.x % a.ntn;
-  const int mt = blockIdx.x / a.ntn;
-  const int bh = BM / a.bw;
-  const int x0 = (mt % a.tx) * a.bw;
-  const int y0 = ((mt / a.tx) % a.ty) * bh;
-  const int nb = mt / a.tx / a.ty;
-  const int n0 = nt * BN;
   const int cblocks = a.cip / CK;
   const int nk = (CONVT ? 1 : 9) * cblocks;
 
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, CONSUMERS / 32);
+      mbar_init(empty + 8 * i, THREADS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {
-    // producer: stage kb of the K loop goes to slot kb % STAGES once the
-    // consumers have released what it held
-    if (tid == CONSUMERS) {
-      for (int kb = 0; kb < nk; ++kb) {
-        const int s = kb % STAGES;
-        mbar_wait(empty + 8 * s, ((kb / STAGES) & 1) ^ 1);
-        const int tap = kb / cblocks, cb = kb - tap * cblocks;
-        const int dy = CONVT ? 0 : tap / 3 - 1, dx = CONVT ? 0 : tap % 3 - 1;
-        const uint32_t st = base + s * STAGE;
-        mbar_expect_tx(full + 8 * s, STAGE);
-        tma_x(st, &map_x, cb * CK, x0 + dx, y0 + dy, nb, full + 8 * s);
-        tma_b(st + STAGE_A, &map_b, tap * a.cip + cb * CK, n0, full + 8 * s);
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg multiplies pixels 64 wg .. 64 wg + 63
-  const int wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % STAGES;
-    mbar_wait(full + 8 * s, (kb / STAGES) & 1);
+  // persistent: CTA b takes tiles b, b + grid, ...; stage g of its K
+  // steps (all tiles in a row) goes to slot g % STAGES. Thread 0 is the
+  // producer: it fills the ring, then refills a slot each time the 8 warps
+  // have released one (the next tile's first stages load while this one's
+  // epilogue runs). pt, pk, pg: the tile, K step and stage it loads next.
+  int pt = blockIdx.x, pk = 0;
+  uint32_t pg = 0;
+  auto produce = [&]() {
+    if (pt >= a.tiles) return;
+    const int s = pg % STAGES;
+    mbar_wait(empty + 8 * s, ((pg / STAGES) & 1) ^ 1);
+    const Tile tl = tile_of(a, pt);
+    const int tap = pk / cblocks, c0 = (pk - tap * cblocks) * CK;
+    const int dy = CONVT ? 0 : tap / 3 - 1, dx = CONVT ? 0 : tap % 3 - 1;
     const uint32_t st = base + s * STAGE;
-    const uint64_t da = desc<CK>(st + wg * 64 * CK);
-    const uint64_t db = desc<CK>(st + STAGE_A);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int ks = 0; ks < CK / 32; ++ks)  // 32 bytes on: 2 in 16-byte units
-      wgmma_s8(acc, da + 2 * ks, db + 2 * ks);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // the previous stage's group is done: release its slot
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % STAGES));
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+    mbar_expect_tx(full + 8 * s, STAGE);
+    tma_x(st, &map_x, c0, tl.x0 + dx, tl.y0 + dy, tl.nb, full + 8 * s);
+    tma_b(st + STAGE_A, &map_b, tap * a.cip + c0, tl.n0, full + 8 * s);
+    ++pg;
+    if (++pk == nk) {
+      pk = 0;
+      pt += gridDim.x;
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < STAGES; ++i) produce();
 
-  // epilogue. Every consumer is done with the ring (the producer's loads
-  // have all landed: each was waited on): it becomes the staging tile(s).
-  bar_sync(1, CONSUMERS);
-  if (tid < BM) {
-    const int yy = y0 + tid / a.bw, xx = x0 + tid % a.bw;
-    uint64_t off = NO_ROW;
-    if (yy < a.h && xx < a.w)
-      off = CONVT ? (((uint64_t)nb * 2 * a.h + 2 * yy) * 2 * a.w + 2 * xx) *
-                        a.co
-                  : (((uint64_t)nb * a.h + yy) * a.w + xx) * a.co;
-    rows[tid] = off;
-  }
-  const bool wide = a.out == OUT_I32 || a.out == OUT_F32;
-  const int es = wide ? 4 : 1;
-  const int ts = BN * es + 16;             // staged row stride, bytes
-  unsigned char* tile2 = smem + BM * ts;   // U8X2's second codes
-  const float lo = a.out == OUT_S8 ? -127.f : 0.f;
-  // acc[4 j + e]: pixel 64 wg + 16 (warp % 4) + lane / 4 + 8 (e >> 1),
-  // column 8 j + 2 (lane % 4) + (e & 1)
-  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  // warpgroup wg multiplies pixels 64 wg .. 64 wg + 63
+  const int wg = tid >> 7, lane = tid & 31;
+  uint32_t g = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    int acc[64];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int kb = 0; kb < nk; ++kb, ++g) {
+      const int s = g % STAGES;
+      mbar_wait(full + 8 * s, (g / STAGES) & 1);
+      const uint32_t st = base + s * STAGE;
+      const uint64_t da = desc<CK>(st + wg * 64 * CK);
+      const uint64_t db = desc<CK>(st + STAGE_A);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int r = r0 + 8 * e2;
-      const int c = 8 * j + 2 * (lane & 3);
-      uint32_t u[2], u2[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + c + e;
-        const int v = acc[4 * j + 2 * e2 + e];
-        u[e] = u2[e] = 0;
-        if (col >= a.ncols) continue;
-        const int o = CONVT ? col % a.co : col;
-        if (a.out == OUT_I32) {
-          u[e] = static_cast<uint32_t>(v);
-          continue;
-        }
-        const float f = dequant(a, o, v);
-        if (a.out == OUT_F32) {
-          u[e] = __float_as_uint(f);
-          continue;
-        }
-        u[e] = code(f, __ldg(a.snext + o), lo);
-        if (a.out == OUT_U8X2) u2[e] = code(f, __ldg(a.snext2 + o), 0.f);
-      }
-      if (wide) {
-        *reinterpret_cast<uint2*>(smem + r * ts + c * 4) = make_uint2(u[0],
-                                                                      u[1]);
-      } else {
-        *reinterpret_cast<uint16_t*>(smem + r * ts + c) =
-            static_cast<uint16_t>(u[0] | u[1] << 8);
-        if (a.out == OUT_U8X2)
-          *reinterpret_cast<uint16_t*>(tile2 + r * ts + c) =
-              static_cast<uint16_t>(u2[0] | u2[1] << 8);
+      for (int ks = 0; ks < CK / 32; ++ks)  // 32 bytes on: 2 16-byte units
+        wgmma_s8(acc, da + 2 * ks, db + 2 * ks);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous stage's group is done: release its slot
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kb > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+        if (tid == 0) produce();
       }
     }
-  }
-  bar_sync(1, CONSUMERS);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
 
-  // out in 16-byte chunks, consecutive threads on consecutive chunks of a
-  // row; a row's columns (3x3) or each run of 2 co (convT) are contiguous
-  const int per = 16 / es;                 // columns a chunk
-  const int cpr = BN / per;                // chunks a row
-  const int nc = min(BN, a.ncols - n0);
-  const int run = CONVT ? 2 * a.co : a.ncols;
-  const uint64_t gap = CONVT ? (uint64_t)2 * a.w * a.co : 0;  // di's stride
-  const bool vec = (a.co * es) % 16 == 0;
-  const int ntile = a.out == OUT_U8X2 ? 2 : 1;
-  for (int i = tid; i < ntile * BM * cpr; i += CONSUMERS) {
-    const int t = i / (BM * cpr);
-    const int r = (i / cpr) % BM;
-    const int c = (i % cpr) * per;
-    const uint64_t off = rows[r];
-    if (off == NO_ROW || c >= nc) continue;
-    const unsigned char* src = (t ? tile2 : smem) + r * ts + c * es;
-    unsigned char* y = static_cast<unsigned char*>(t ? a.y2 : a.y);
-    const int col = n0 + c;
-    if (vec && c + per <= nc) {
-      const uint64_t at = off + (col / run) * gap + col % run;
-      *reinterpret_cast<int4*>(y + at * es) =
-          *reinterpret_cast<const int4*>(src);
+    // epilogue, staged in the tile's last slot, released at its end (the
+    // producer fills the others with the next tile's first stages); first
+    // the tile's row offsets in y and column constants
+    bar_sync(1, THREADS);  // both groups are done reading the slot
+    const Tile tl = tile_of(a, t);
+    if (tid < BM) {
+      const int yy = tl.y0 + tid / a.bw, xx = tl.x0 + tid % a.bw;
+      uint64_t off = NO_ROW;
+      if (yy < a.h && xx < a.w)
+        off = CONVT ? (((uint64_t)tl.nb * 2 * a.h + 2 * yy) * 2 * a.w +
+                       2 * xx) * a.co
+                    : (((uint64_t)tl.nb * a.h + yy) * a.w + xx) * a.co;
+      rows[tid] = off;
     } else {
-      for (int k = 0; k < per && c + k < nc; ++k) {
-        const uint64_t at = off + ((col + k) / run) * gap + (col + k) % run;
-        for (int bt = 0; bt < es; ++bt) y[at * es + bt] = src[k * es + bt];
-      }
+      const int c = tid - BM, col = min(tl.n0 + c, a.ncols - 1);
+      const int o = CONVT ? col % a.co : col;
+      cs[c] = a.scale ? __ldg(a.scale + o) : 0.f;
+      cb[c] = a.bias ? __ldg(a.bias + o) : 0.f;
+      cn[c] = a.snext ? __ldg(a.snext + o) : 1.f;
+      cn2[c] = a.snext2 ? __ldg(a.snext2 + o) : 1.f;
+      // (di, dj, o) of the transposed conv: y[n, 2i + di, 2j + dj, o]
+      cofs[c] = CONVT ? col / (2 * a.co) * 2 * a.w * a.co + col % (2 * a.co)
+                      : col;
     }
+    bar_sync(1, THREADS);
+    epilogue<CK>(a, acc, smem + ((g - 1) % STAGES) * STAGE, rows, cs, cb,
+                 cn, cn2, cofs, min(BN, a.ncols - tl.n0));
+    // the slot's generic reads and writes before the producer's next TMA
+    // write to it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+    if (tid == 0) produce();
   }
 }
 
@@ -419,19 +470,23 @@ int make_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
 
 template <int CK, bool CONVT>
 cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mb,
-                   const Args& a, int grid, cudaStream_t st) {
-  static unsigned ready = 0;  // a bit a device: the attribute is set
+                   const Args& a, cudaStream_t st) {
+  static int sms[32] = {};  // a device's SMs, once its attribute is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 32) return cudaErrorInvalidDevice;
-  if (!(ready >> dev & 1u)) {
+  if (!sms[dev]) {
     err = cudaFuncSetAttribute(conv_i8<CK, CONVT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
     if (err != cudaSuccess) return err;
-    ready |= 1u << dev;
   }
+  // two persistent CTAs an SM, or one a tile where there are fewer
+  const int grid = a.tiles < 2 * sms[dev] ? a.tiles : 2 * sms[dev];
   conv_i8<CK, CONVT><<<grid, THREADS, SMEM, st>>>(mx, mb, a);
   return cudaGetLastError();
 }
@@ -441,8 +496,8 @@ cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mb,
 // x [n, h, w, cip] int8 NHWC; b [ncols, kpad] int8 (ops/conv_i8.py lays it
 // out, kpad = 9 cip or cip); y (and y2) as the out mode says. convt: 0 for
 // the 3x3 SAME conv, 1 for the 2x2 stride-2 transposed conv. ck: the K step
-// (128, 64 or 32 bytes; cip a multiple of it); bw: a tile's pixel columns
-// (a power of two up to 128). Returns the CUDA error of the launch (0:
+// (128, 64 or 32 bytes; cip a multiple of it); bw: a tile's pixel columns (a
+// power of two up to 128). Returns the CUDA error of the launch (0:
 // launched).
 extern "C" int onet_conv_i8(const void* x, const void* b, const void* scale,
                             const void* bias, const void* snext,
@@ -450,8 +505,9 @@ extern "C" int onet_conv_i8(const void* x, const void* b, const void* scale,
                             int h, int w, int cip, int co, int convt, int ck,
                             int bw, int out, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || co <= 0 || out < 0 || out > OUT_U8X2 ||
-      (ck != 32 && ck != 64 && ck != 128) || cip % ck || bw < 1 ||
-      bw > BM || BM % bw || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (ck != 32 && ck != 64 && ck != 128) || cip % ck || bw < 1 || bw > BM ||
+      BM % bw ||
+      (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(b) & 15))
     return (int)cudaErrorInvalidValue;
   if (!encode_tiled) {
@@ -481,8 +537,9 @@ extern "C" int onet_conv_i8(const void* x, const void* b, const void* scale,
   a.ty = (h + BM / bw - 1) / (BM / bw);
   a.ntn = (a.ncols + BN - 1) / BN;
   a.out = out;
-  const long grid = (long)n * a.tx * a.ty * a.ntn;
-  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const long tiles = (long)n * a.tx * a.ty * a.ntn;
+  if (tiles > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
   const int kpad = (convt ? 1 : 9) * cip;
   CUtensorMap mx, mb;
   const cuuint64_t dx[4] = {(cuuint64_t)cip, (cuuint64_t)w, (cuuint64_t)h,
@@ -497,17 +554,17 @@ extern "C" int onet_conv_i8(const void* x, const void* b, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (convt)
-    err = ck == 128  ? launch<128, true>(mx, mb, a, (int)grid, st)
-          : ck == 64 ? launch<64, true>(mx, mb, a, (int)grid, st)
-                     : launch<32, true>(mx, mb, a, (int)grid, st);
+    err = ck == 128  ? launch<128, true>(mx, mb, a, st)
+          : ck == 64 ? launch<64, true>(mx, mb, a, st)
+                     : launch<32, true>(mx, mb, a, st);
   else
-    err = ck == 128  ? launch<128, false>(mx, mb, a, (int)grid, st)
-          : ck == 64 ? launch<64, false>(mx, mb, a, (int)grid, st)
-                     : launch<32, false>(mx, mb, a, (int)grid, st);
+    err = ck == 128  ? launch<128, false>(mx, mb, a, st)
+          : ck == 64 ? launch<64, false>(mx, mb, a, st)
+                     : launch<32, false>(mx, mb, a, st);
   return (int)err;
 }
 
-// Blocks of conv_i8<ck, convt> an SM can hold (the design wants 2), or
+// CTAs of conv_i8<ck, convt> an SM can hold (the design wants 2), or
 // -(CUDA error).
 extern "C" int onet_conv_i8_occupancy(int ck, int convt) {
   int blocks = 0;

@@ -136,7 +136,8 @@ class Plan:
     """How csrc/conv_i8.cu runs one call: x's channels padded to ``cip``,
     K steps of ``ck`` bytes (the swizzle; ``stages`` of them in the ring),
     pixel tiles of ``bh`` rows x ``bw`` columns of one image (``tx`` x
-    ``ty`` an image), ``ntn`` column tiles of 128, ``grid`` CTAs; B is
+    ``ty`` an image), ``ntn`` column tiles of 128, ``grid`` tiles in all
+    (the persistent kernel walks them with at most two CTAs an SM); B is
     [``ncols``, ``kpad``]."""
     cip: int
     ck: int

@@ -93,6 +93,8 @@ def site_call(CI, convt, x, w, scale, bias, s_next, requant, ck):
         requant = ("unsigned", "unsigned") if two else None
         s_next = (s_next, s_next * 0.5) if two else None
     mode = CI.out_mode(scale, requant)
+    if ck is not None and CI.plan(*x.shape, co, convt).cip % ck:
+        ck = None       # a K step this site's ci does not take
     ops = CI.operands(x, w, convt) if ck is None else CI.operands(
         x, w, convt, ck=ck)
     if len(ops) == 5:     # a tree whose kernel takes (x, B, vec, kpad)

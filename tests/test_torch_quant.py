@@ -291,7 +291,8 @@ def _plan_holds(convt, xs, co, ck=None):
 def test_plan_at_every_site_and_odd_shapes():
     """Full width: boxes of 1 x 128 pixels at W >= 128, 2 x 64 at 64,
     4 x 32 at 32, no channel padding but inc.conv1's (2 -> 32), 128-byte
-    K steps; odd shapes and forced K steps hold the plan's invariants."""
+    K steps (32 at inc.conv1); odd shapes and forced K steps hold the
+    plan's invariants."""
     want_box = {512: (1, 128), 256: (1, 128), 128: (1, 128), 64: (2, 64),
                 32: (4, 32)}
     for name, convt, xs, co in SITES_512:
@@ -306,6 +307,8 @@ def test_plan_at_every_site_and_odd_shapes():
         assert _plan_holds(False, (2, 9, 40, 256), 72, ck).ck == ck
     with pytest.raises(ValueError):
         CI.plan(1, 4, 4, 64, 8, False, ck=128)   # 128 does not divide 64
+    with pytest.raises(ValueError):
+        CI.plan(1, 4, 4, 256, 8, False, ck=16)   # no 16-byte step
 
 
 def test_plan_at_base_8(monkeypatch):
@@ -385,7 +388,7 @@ def _emulate(x, w, convt, ck=None):
 @pytest.mark.parametrize("convt,xs,co,ck", [
     (False, (2, 9, 40, 64), 130, None), (False, (1, 7, 3, 6), 5, None),
     (False, (1, 5, 200, 16), 24, None), (False, (2, 4, 9, 256), 12, 64),
-    (True, (2, 9, 33, 128), 20, 64), (True, (1, 3, 130, 16), 3, None),
+    (True, (2, 9, 33, 128), 20, 32), (True, (1, 3, 130, 16), 3, None),
     (True, (1, 4, 6, 48), 8, None)])
 def test_kernel_tiling_emulated_equals_plain(convt, xs, co, ck):
     """The tiling the kernel runs (plan, operand layout, box coordinates,
