@@ -107,10 +107,12 @@ Phases, each fatal on failure:
      fresh simclutter train split; mask agreement with the bf16 folded
      graph on its test split (fatal under 0.99, printed against 0.999)
      and on 512^2 frames; launches a batch asserted (16 + 4 with the bf16
-     head, 18 + 4 without); every int8 launch of a batch-8 step held on a
-     batch-1 slice against its plain version (int32 sums and int8 codes
-     bit-equal); each site's kernel timed beside its bound, cuDNN's bf16
-     conv (``torch._int_mm`` for the transposed conv) and, at two sites,
+     head, 18 + 4 without; down1-3.conv2 one launch each that writes the
+     skip's and the next conv's codes); every int8 launch of a batch-8
+     step held on a batch-1 slice against its plain version (int32 sums
+     and int8 codes bit-equal); each site's kernel timed beside its bound,
+     cuDNN's bf16 conv (``torch._int_mm`` for the transposed conv) and,
+     at two sites,
      the plain version; the int8 steps at batch 8 and 32 beside the bf16
      steps; int8 over HTTP (batch 8) and as an artifact exported on the
      card (its launches counted, its S equal to the live step's); 5 train
@@ -2996,6 +2998,11 @@ def q_frames(dev, n: int, seed: int) -> torch.Tensor:
     return torch.stack(xs, dim=1).reshape(-1, H, W)[:n, ..., None]
 
 
+# ops/conv_i8.py's out modes, by number
+MODE_NAMES = ("int32", "f32", "unsigned codes", "signed codes",
+              "two unsigned codes")
+
+
 def i8_counts(CI) -> dict:
     return {"conv3x3_i8": CI.conv3x3_i8.launches,
             "convT2x2_i8": CI.convT2x2_i8.launches}
@@ -3028,8 +3035,9 @@ def i8_check(CI, op, tag: str) -> float:
     """One captured launch on a batch-1 slice of its operands: the kernel's
     int32 accumulator (run again in that mode, not counted) and the plain
     version's (float64 on the codes) bit-equal; the captured int8 codes
-    bit-equal to the plain epilogue's; f32 outputs within one f32
-    rounding (their largest |difference| is returned)."""
+    (both tensors of a two-code launch) bit-equal to the plain epilogue's;
+    f32 outputs within one f32 rounding (their largest |difference| is
+    returned)."""
     convt, x, w, scale, bias, s_next, mode, y = op
     x1 = x[:1]
     acc = CI._launch(x1, w, None, None, None, CI.OUT_I32, convt)
@@ -3038,6 +3046,13 @@ def i8_check(CI, op, tag: str) -> float:
         bad = int((acc != ref).sum())
         raise AssertionError(f"{tag}: {bad} int32 sums differ from plain")
     want = CI.epilogue_plain(ref, scale, bias, s_next, mode)
+    if mode == CI.OUT_U8X2:
+        for i, (yi, wi) in enumerate(zip(y, want)):
+            if yi.dtype != wi.dtype or not torch.equal(yi[:1], wi):
+                bad = int((yi[:1] != wi).sum())
+                raise AssertionError(f"{tag}: {bad} int8 codes of output "
+                                     f"{i} of 2 differ")
+        return 0.0
     got = y[:1]
     if got.dtype != want.dtype:
         raise AssertionError(f"{tag}: {got.dtype} against {want.dtype}")
@@ -3053,17 +3068,21 @@ def i8_check(CI, op, tag: str) -> float:
     return diff.max().item()
 
 
-def i8_bound(op) -> tuple:
+def i8_bound(CI, op) -> tuple:
     """(ms, 'bytes' | 'operations') of one launch: 2 pixels x columns x K
     operations on the int8 tensor cores (K the real 9 ci or ci, no
-    padding), x and w read once, y (and the [co] vectors) written once."""
-    convt, x, w, scale, bias, s_next, _, y = op
+    padding), x, w and the [co] vectors read once, y (both code tensors
+    of a two-code launch) written once."""
+    convt, x, w, scale, bias, s_next, mode, y = op
     n, h, wd, ci = x.shape
     cols = w.shape[3] * (4 if convt else 1)
     ops = 2 * n * h * wd * cols * ci * (1 if convt else 9)
-    nbytes = (x.numel() + w.numel() + y.numel() * y.element_size()
-              + sum(4 * t.numel() for t in (scale, bias, s_next)
-                    if t is not None))
+    two = mode == CI.OUT_U8X2
+    ys = y if two else (y,)
+    vecs = (scale, bias, *(s_next if two else (s_next,)))
+    nbytes = (x.numel() + w.numel()
+              + sum(t.numel() * t.element_size() for t in ys)
+              + sum(4 * t.numel() for t in vecs if t is not None))
     t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3078,12 +3097,11 @@ def i8_time(CI, op) -> dict:
     import torch.nn.functional as F
 
     convt, x, w, scale, bias, s_next, mode, _ = op
-    xk, b, _, kpad, vec = CI.operands(x, w, convt)
+    xk, b, p = CI.operands(x, w, convt)
     co = w.shape[3]
 
     def run():
-        return CI.kernel(xk, b, vec, kpad, co, scale, bias, s_next, mode,
-                         convt)
+        return CI.kernel(xk, b, p, co, scale, bias, s_next, mode, convt)
 
     t = {"ms": cold_ms(run), "device_ms": device_ms(run, kernels=1),
          "warm_ms": cuda_ms(run),
@@ -3104,7 +3122,7 @@ def i8_time(CI, op) -> dict:
     # events behind a spin kernel, no profiler: a time where the
     # profiler drops the library call's records
     t["library_queued_ms"] = None if lib is None else queued_ms(lib)
-    t["bound_ms"], t["bound_by"] = i8_bound(op)
+    t["bound_ms"], t["bound_by"] = i8_bound(CI, op)
     t["plain_ms"] = cuda_ms(lambda: CI.plain(x, w, scale, bias, s_next, mode,
                                              convt), reps=3, warmup=1)
     return t
@@ -3202,9 +3220,11 @@ def q_serving(CI, dev, res, folded, calib, held) -> dict:
             t = i8_time(CI, op)
             t["shape"] = [list(op[1].shape), list(op[2].shape)]
             t["launches"] = [int(name in bf16_head_names), 1]
+            t["mode"] = MODE_NAMES[op[6]]
             res["sites"][name] = t
             log(f"[int8] site {name} x {tuple(op[1].shape)} w "
-                f"{tuple(op[2].shape)}: kernel {t['ms']:.4f} ms (device "
+                f"{tuple(op[2].shape)}, {t['mode']}: kernel "
+                f"{t['ms']:.4f} ms (device "
                 f"{fmt_ms(t['device_ms'], 4)}, warm {t['warm_ms']:.4f}), "
                 f"wrapper {t['wrapper_ms']:.4f}, bound {t['bound_ms']:.4f} "
                 f"({t['bound_by']}), library "
@@ -5038,7 +5058,7 @@ def main() -> int:
     ptxas_report(_build, "conv_wp_dw", no_spill="dw_bf16")
     ptxas_report(_build, "conv_bd", no_spill="conv_bd")
     ptxas_report(_build, "head", no_spill="minmax_cluster")
-    ptxas_report(_build, "conv_i8")
+    ptxas_report(_build, "conv_i8", no_spill="conv_i8")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

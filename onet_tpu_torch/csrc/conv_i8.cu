@@ -34,40 +34,57 @@
 // What bounds it on the H100. A 3x3 site at 512^2 (batch 8) does
 // 2 * 8 * 512^2 * 9 ci co operations: up4.conv1 (ci 256, co 128) 1.24 T,
 // 0.625 ms at 1979 dense int8 TOP/s against 0.27 GB in and out, 0.08 ms at
-// 3.35 TB/s; the ci >= 128 sites are operations-bound, inc.conv1 (ci 2)
-// and the transposed convs (K = ci, one tap) bytes-bound. So the tensor
-// cores must be fed at their rate, and the epilogue (a correctly rounded
-// division an output) must not stall them.
+// 3.35 TB/s. The ci >= 128 sites are operations-bound; inc.conv1 (ci 2),
+// the f32 outputs and the transposed convs (K = ci, one tap) bytes-bound.
+// Two costs stand between the kernel and those bounds: the tensor cores'
+// feed (each 128 x 128 tile reads its A once a tap and its B once, from
+// L2 into shared memory, and wgmma reads both from there) and the
+// epilogue, which divides every output by its scale correctly rounded
+// (the multi-function unit's rate) and writes it.
 //
 // Design (one main loop, conv_i8<CK, CONVT>):
-//  * tile: 128 pixels x 128 columns a CTA, the pixels one image's block of
-//    bh rows x bw columns (bw = 128, 64, 32 ... as W allows, bw bh = 128);
-//    column tiles fastest in the grid, so the CTAs that share a block of x
-//    run together and read it from L2;
+//  * tile: 128 pixels x 128 columns, the pixels one image's block of bh
+//    rows x bw columns (bw = 128, 64, 32 ... as W allows, bw bh = 128);
+//    column tiles fastest, so the CTAs that share a block of x run
+//    together and read it from L2;
 //  * operands by TMA: a 4-D tensor map over x [n, h, w, cip] with box
 //    {CK ci, bw, bh, 1}; tap (dy, dx) of ci block c is the box at
 //    (c, x0 + dx - 1, y0 + dy - 1, n): the hardware's zero fill of what
 //    lies outside x is the SAME padding and the ragged edge, no predicate
 //    in the kernel. The transposed conv is the same loop with one
 //    unshifted tap. B by a 2-D map over [cols, kpad], box {CK, 128};
-//  * K steps of CK bytes of ci (128, 64 or 32, by cip), each a stage of a
-//    96 KB ring (3, 6 or 12 stages), landed in the CK-byte swizzle that
-//    the tensor cores' descriptors read (no bank conflicts);
+//  * K steps of CK bytes of ci (128 where cip allows, else 64 or 32), each
+//    a stage of a 96 KB ring (3, 6 or 12 stages), landed in the CK-byte
+//    swizzle that the tensor cores' descriptors read (no bank conflicts);
 //  * products: wgmma.mma_async m64n128k32 .s32.s8.s8, both operands
-//    K-major in shared memory; two consumer warpgroups, 64 pixels each,
-//    64 int32 accumulators a thread; one producer warp (one thread) keeps
-//    the ring full against "full" mbarriers (transaction bytes); each
-//    consumer warp releases a stage on its "empty" mbarrier once the wgmma
-//    that read it have completed (wait_group 1 keeps one in flight);
-//  * two CTAs an SM (100 KB of shared memory, at most 112 registers a
-//    thread), so one CTA's epilogue and ring fill overlap the other's
-//    products;
-//  * epilogue: the tile's outputs (one or two code tiles, or int32 / f32)
-//    staged in the ring, then 16-byte stores of whole runs: a 3x3 tile row
-//    is one pixel's channels, consecutive rows consecutive pixels; a
-//    transposed-conv tile row is, for each di, a run of 2 co columns
-//    (dj, o) of y[n, 2i + di, 2j .. 2j + 1, :], consecutive rows j
-//    adjacent. Each row's base offset in y is computed once a tile.
+//    K-major in shared memory; two warpgroups, 64 pixels each, 64 int32
+//    accumulators a thread; each warp releases a stage on its "empty"
+//    mbarrier once the wgmma that read it have completed (wait_group 1
+//    keeps one in flight);
+//  * persistent, two CTAs an SM (105 KB of shared memory and 128 registers
+//    a thread each), so one CTA's epilogue overlaps the other's products.
+//    Thread 0 is the producer: it fills the ring against "full" mbarriers
+//    (transaction bytes) and refills each slot as the 8 warps release it,
+//    running on into the next tile while this one's epilogue runs. (A
+//    producer warp of its own would put five warps on some quarter of the
+//    SM, capping a thread at 96 registers; ptxas spilled there.) Against
+//    one CTA a tile, whose start and epilogue nothing overlapped, the
+//    persistent loop took 45% off the transposed convs;
+//  * epilogue: in the slot of the tile's last stage (released after it,
+//    the others already loading), per-column scale, bias, snext and y
+//    offsets staged once a tile; the outputs (one or two code tensors, or
+//    int32 / f32 in passes) staged in 16-byte chunks XOR-swizzled by row,
+//    then stored as whole runs: a 3x3 tile row is one pixel's channels,
+//    consecutive rows consecutive pixels; a transposed-conv tile row is,
+//    for each di, a run of 2 co columns (dj, o) of y[n, 2i + di,
+//    2j .. 2j + 1, :]. rint, the clamp and the conversion to int are one
+//    exact add of 1.5 2^23;
+//  * what it reaches: the ops-bound sites a quarter to a half of their
+//    bound (the 64-accumulator tile: wgmma's operand reads and the TMA's
+//    writes come near shared memory's 128 B a clock an SM), the transposed
+//    convs under torch._int_mm's bare GEMM (runs/i8_probe.py). Tiles of
+//    128 x 256 with 128 accumulators a thread need one CTA an SM, whose
+//    epilogue then wants a second tile in flight (ping-pong warpgroups).
 
 #include <cuda.h>
 #include <cuda_runtime.h>

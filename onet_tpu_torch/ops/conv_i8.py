@@ -57,9 +57,8 @@ OUT_I32, OUT_F32, OUT_U8, OUT_S8, OUT_U8X2 = range(5)
 PAIR = ("unsigned", "unsigned")
 _REQUANT = {None: OUT_F32, "unsigned": OUT_U8, "signed": OUT_S8,
             PAIR: OUT_U8X2}
-# the kernel's tile: pixels x columns, and its ring of K steps, bytes
+# the kernel's tile: pixels x columns
 BM = BN = 128
-RING = 96 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -82,13 +81,9 @@ def convT2x2_acc_plain(x, w):
     return y.permute(0, 2, 3, 1).round().to(torch.int32)
 
 
-def _requant_key(requant):
-    return tuple(requant) if isinstance(requant, list) else requant
-
-
 def out_mode(scale, requant) -> int:
     """The out mode of a call with ``scale`` and ``requant``."""
-    return OUT_I32 if scale is None else _REQUANT[_requant_key(requant)]
+    return OUT_I32 if scale is None else _REQUANT[requant]
 
 
 def epilogue_plain(acc, scale, bias, s_next, mode: int):
@@ -134,14 +129,13 @@ def convT2x2_i8_plain(x, w, scale=None, bias=None, *, requant=None,
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How csrc/conv_i8.cu runs one call: x's channels padded to ``cip``,
-    K steps of ``ck`` bytes (the swizzle; ``stages`` of them in the ring),
-    pixel tiles of ``bh`` rows x ``bw`` columns of one image (``tx`` x
-    ``ty`` an image), ``ntn`` column tiles of 128, ``grid`` tiles in all
-    (the persistent kernel walks them with at most two CTAs an SM); B is
-    [``ncols``, ``kpad``]."""
+    K steps of ``ck`` bytes (the swizzle), pixel tiles of ``bh`` rows x
+    ``bw`` columns of one image (``tx`` x ``ty`` an image), ``ntn``
+    column tiles of 128, ``grid`` tiles in all (the persistent kernel
+    walks them with at most two CTAs an SM); B is [``ncols``,
+    ``kpad``]."""
     cip: int
     ck: int
-    stages: int
     bw: int
     bh: int
     tx: int
@@ -169,9 +163,9 @@ def plan(n: int, h: int, w: int, ci: int, co: int, convt: bool,
     tx, ty = -(-w // bw), -(-h // bh)
     ncols = 4 * co if convt else co
     ntn = -(-ncols // BN)
-    return Plan(cip=cip, ck=ck, stages=RING // ((BM + BN) * ck), bw=bw,
-                bh=bh, tx=tx, ty=ty, ncols=ncols, ntn=ntn,
-                kpad=cip * (1 if convt else 9), grid=n * tx * ty * ntn)
+    return Plan(cip=cip, ck=ck, bw=bw, bh=bh, tx=tx, ty=ty, ncols=ncols,
+                ntn=ntn, kpad=cip * (1 if convt else 9),
+                grid=n * tx * ty * ntn)
 
 
 def _check(x, w, convt, scale, bias, requant, s_next):
@@ -183,7 +177,6 @@ def _check(x, w, convt, scale, bias, requant, s_next):
             w.shape[2] != x.shape[3]:
         raise ValueError(f"{name}: x [N, H, W, ci] and w [{kh}, {kh}, ci, "
                          f"co], got {tuple(x.shape)} and {tuple(w.shape)}")
-    requant = _requant_key(requant)
     if not isinstance(requant, (str, tuple, type(None))) or \
             requant not in _REQUANT:
         raise ValueError(f"requant must be None, 'unsigned', 'signed' or "

@@ -14,8 +14,7 @@ Each site runs in the out mode the graph gives it (``head_bf16=False``:
 every site int8). down1-3.conv2 feed a skip and the next conv: a tree
 with the two-code mode runs them in it (one launch, two code tensors);
 a tree without runs them in f32, and ``requant_ms`` times the two eager
-requantizations that then follow. ``--ck`` forces the kernel's K step
-where a tree plans one (``ops/conv_i8.py::plan``).
+requantizations that then follow.
 
 Every kernel call is timed on operands laid out beforehand, with the L2
 cache flushed before it, outside the CUDA events (median of
@@ -85,18 +84,15 @@ def bound(convt, xs, co, nout: int, es: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def site_call(CI, convt, x, w, scale, bias, s_next, requant, ck):
-    """(the kernel on operands laid out beforehand, its out mode's name)."""
+def site_call(CI, convt, x, w, scale, bias, s_next, requant):
+    """(the kernel on operands laid out beforehand, its out mode)."""
     co = w.shape[3]
     two = requant == "x2" and hasattr(CI, "OUT_U8X2")
     if requant == "x2":
         requant = ("unsigned", "unsigned") if two else None
         s_next = (s_next, s_next * 0.5) if two else None
     mode = CI.out_mode(scale, requant)
-    if ck is not None and CI.plan(*x.shape, co, convt).cip % ck:
-        ck = None       # a K step this site's ci does not take
-    ops = CI.operands(x, w, convt) if ck is None else CI.operands(
-        x, w, convt, ck=ck)
+    ops = CI.operands(x, w, convt)
     if len(ops) == 5:     # a tree whose kernel takes (x, B, vec, kpad)
         xk, b, _, kpad, vec = ops
         return (lambda: CI.kernel(xk, b, vec, kpad, co, scale, bias, s_next,
@@ -106,7 +102,7 @@ def site_call(CI, convt, x, w, scale, bias, s_next, requant, ck):
                               convt)), mode
 
 
-def time_site(CI, name, ck, gen) -> dict:
+def time_site(CI, name, gen) -> dict:
     convt, xs, co, requant = SITES[name]
     dev = torch.device("cuda")
     kh = 2 if convt else 3
@@ -117,7 +113,7 @@ def time_site(CI, name, ck, gen) -> dict:
     scale = (torch.rand(co, generator=gen, device=dev) + 0.5) * 1e-4
     bias = torch.randn(co, generator=gen, device=dev)
     s_next = torch.rand(co, generator=gen, device=dev) * 0.02 + 0.005
-    run, mode = site_call(CI, convt, x, w, scale, bias, s_next, requant, ck)
+    run, mode = site_call(CI, convt, x, w, scale, bias, s_next, requant)
     nout = 2 if requant == "x2" and hasattr(CI, "OUT_U8X2") else 1
     es = 4 if mode in (CI.OUT_I32, CI.OUT_F32) else 1
     out = {"x": list(xs), "co": co, "mode": mode, "outputs": nout,
@@ -212,20 +208,16 @@ def main() -> None:
     from onet_tpu_torch.ops import conv_i8 as CI
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ck", type=int, default=None,
-                    help="force the kernel's K step (bytes)")
-    ap.add_argument("--sites", default=",".join(SITES),
-                    help="comma-separated sites")
     ap.add_argument("--steps", action="store_true",
                     help="also time the serving and train steps")
     args = ap.parse_args()
     gen = torch.Generator(torch.device("cuda")).manual_seed(1981)
     out = {"tree": os.path.dirname(os.path.dirname(
                os.path.abspath(CI.__file__))),
-           "card": card_line(), "ck": args.ck, "sites": {}}
+           "card": card_line(), "sites": {}}
     with torch.inference_mode():
-        for name in args.sites.split(","):
-            out["sites"][name] = time_site(CI, name, args.ck, gen)
+        for name in SITES:
+            out["sites"][name] = time_site(CI, name, gen)
             torch.cuda.empty_cache()
     if args.steps:
         out["steps"] = time_steps(gen)

@@ -721,11 +721,13 @@ def test_int8_artifact_from_the_cpu_serves_on_the_card(dev, tmp_path):
 
 
 # the TMA tiling's edges: (convT, n, h, w, ci, co). W not a multiple of the
-# box width (200, 40, 70, 130, 33), boxes past an image's last row (bh 2
-# at h 9, bh 32 at h 7), ci 2 / 6 / 16 (padded to 32), 64, 128, 1024,
-# co under 8 and not a multiple of 8 (5, 7, 3, 12, 20, 130), M under one
-# tile (16, 21, 10 pixels)
+# box width (200, 40, 70, 130, 33, 300), boxes past an image's last row
+# (bh 2 at h 9, bh 32 at h 7), ci 2 / 6 / 16 (padded to 32), 64, 128,
+# 256, 1024, co under 8 and not a multiple of 8 (5, 7, 3, 12, 20, 130,
+# 72, 136), M under one tile (16, 21, 10 pixels)
 I8_EDGE_SHAPES = [
+    (False, 2, 9, 64, 256, 72),
+    (False, 1, 3, 300, 128, 136),
     (False, 1, 5, 200, 16, 24),
     (False, 2, 9, 40, 64, 130),
     (False, 1, 7, 3, 1024, 5),

@@ -275,7 +275,6 @@ def _plan_holds(convt, xs, co, ck=None):
     assert p.cip >= ci and p.cip - ci < 64 and p.cip % 16 == 0  # strides
     assert p.cip == 32 or p.cip % 64 == 0
     assert p.ck in (32, 64, 128) and p.cip % p.ck == 0
-    assert p.stages == CI.RING // (256 * p.ck) >= 3
     assert p.bw * p.bh == 128 and p.bw & (p.bw - 1) == 0
     assert max(p.bw, p.bh, p.ck) <= 256                        # box dims
     assert (p.tx - 1) * p.bw < w <= p.tx * p.bw
@@ -300,7 +299,6 @@ def test_plan_at_every_site_and_odd_shapes():
         assert (p.bh, p.bw) == want_box[xs[2]], name
         assert p.cip == (32 if name == "inc.conv1" else xs[3]), name
         assert p.ck == (32 if name == "inc.conv1" else 128), name
-        assert p.stages == (12 if name == "inc.conv1" else 3), name
     for convt, xs, co in ODD_SHAPES:
         _plan_holds(convt, xs, co)
     for ck in (32, 64, 128):
@@ -388,6 +386,7 @@ def _emulate(x, w, convt, ck=None):
 @pytest.mark.parametrize("convt,xs,co,ck", [
     (False, (2, 9, 40, 64), 130, None), (False, (1, 7, 3, 6), 5, None),
     (False, (1, 5, 200, 16), 24, None), (False, (2, 4, 9, 256), 12, 64),
+    (False, (2, 3, 150, 128), 9, None), (False, (2, 5, 64, 256), 16, None),
     (True, (2, 9, 33, 128), 20, 32), (True, (1, 3, 130, 16), 3, None),
     (True, (1, 4, 6, 48), 8, None)])
 def test_kernel_tiling_emulated_equals_plain(convt, xs, co, ck):
