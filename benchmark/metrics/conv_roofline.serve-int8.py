@@ -1,0 +1,9 @@
+"""conv_roofline.serve-int8: the model's convolutions' least time at the
+peaks over the device time of the conv kernels, percent, in an int8
+serve cell."""
+
+from benchmark.readers import conv_roofline
+
+
+def read(rec):
+    return conv_roofline(rec, "serve")

@@ -1,0 +1,9 @@
+"""pointwise_share.serve: device time of elementwise, copy, layout and
+reduction kernels (the "pointwise" class) over all device time, in a serve
+cell."""
+
+from benchmark.readers import class_share
+
+
+def read(rec):
+    return class_share(rec, "serve", "pointwise")

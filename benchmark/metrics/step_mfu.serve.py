@@ -1,0 +1,8 @@
+"""step_mfu.serve: the model's operations done in the traced window, each
+over its precision's peak, over the window, percent, in a serve cell."""
+
+from benchmark.readers import step_mfu
+
+
+def read(rec):
+    return step_mfu(rec, "serve")
