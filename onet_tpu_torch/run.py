@@ -1592,30 +1592,30 @@ def _serve(args, policy, dev):
                 masks.append(m[None].astype(np.uint8))
                 n += 1
         else:
-            lat = []
+            # the session pads a ragged tail to the one batch shape
+            # (pinned-batch artifacts require it) and times each part
+            from onet_tpu_torch.serve.http import ServingSession
+            from onet_tpu_torch.utils import profiling
+            sess = ServingSession(step, model_arg, batch=args.serve_batch,
+                                  in_channels=imgs.shape[-1], mode=mode,
+                                  device=dev)
+            since = None
             for i in range(0, imgs.shape[0], args.serve_batch):
-                tb = time.perf_counter()
-                chunk = imgs[i:i + args.serve_batch]
-                got = chunk.shape[0]
-                if got < args.serve_batch:
-                    # pad the ragged tail to the one batch shape (pinned-
-                    # batch artifacts require it)
-                    chunk = np.concatenate(
-                        [chunk, np.repeat(chunk[-1:],
-                                          args.serve_batch - got, axis=0)])
-                xb = torch.as_tensor(np.ascontiguousarray(chunk)).to(dev)
-                _, labels = step(model_arg, xb)
-                masks.append(_host(labels)[:got].astype(np.uint8))
-                lat.append(time.perf_counter() - tb)
-                n += got
-            if len(lat) > 2:
-                # per-batch serving latency (the host read of the labels
-                # waits for the device); the first batch builds and warms
-                warm = np.asarray(lat[1:]) * 1e3
+                m, _ = sess.segment(imgs[i:i + args.serve_batch])
+                masks.append(m)
+                n += m.shape[0]
+                if since is None:   # the first batch builds and warms
+                    first = profiling.spans()[-1].ms   # its segment span
+                    since = profiling.mark()
+            # per-batch serving latency (the host read of the labels waits
+            # for the device), over the ring's latest batches
+            warm = [r.ms for r in profiling.spans(since)
+                    if r.name == "session.segment"]
+            if len(warm) > 1:
                 print(f"[serve] latency/batch p50 "
                       f"{np.percentile(warm, 50):.1f} ms p95 "
                       f"{np.percentile(warm, 95):.1f} ms (first incl. "
-                      f"warm-up {lat[0] * 1e3:.0f} ms)")
+                      f"warm-up {first:.0f} ms)")
     dt = time.perf_counter() - t0
     masks = np.concatenate(masks)
     np.savez(args.out, masks=masks)

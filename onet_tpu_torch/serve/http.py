@@ -10,17 +10,29 @@
                                     (``serve/tiles.py``); only when the
                                     session has a ``tile``, else 400
     GET  /healthz   JSON: model, mode, batch, warm state
-    GET  /stats     JSON: request/frame counts, device + end-to-end latency
-                    percentiles
+    GET  /stats     JSON: request/frame/error counts, device and
+                    end-to-end latency percentiles of the requests, each
+                    span's percentiles (``spans_ms``), steps and padded
+                    frames
 
 Requests of any batch size run in fixed ``batch``-sized chunks (the last
 one padded); scenes run in batches of ``tile + 2*halo`` windows, one shape
 too. The device step is serialized by a lock; the HTTP layer is a
 ``ThreadingHTTPServer`` so health and stats probes never wait behind it.
+
+The session and the handler time their parts as spans
+(``utils/profiling.py``), one set a batch: ``session.copy_in`` (frames to
+the device), ``session.normalize``, ``session.lock_wait`` (acquiring the
+step lock), ``session.step`` (launching the step), ``session.device_wait``
+(until the step is done), ``session.labels_out`` (labels to the host),
+``session.cast`` (to uint8), under ``session.segment`` a call; a scene's
+``session.tiled``; ``http.read``, ``http.write`` under ``http.request``.
+Counters: ``steps``, ``padded_frames`` (frames added to fill a batch).
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import threading
@@ -34,6 +46,13 @@ import torch
 from onet_tpu_torch.core.device import resolve_device
 from onet_tpu_torch.ops.normalize import minmax_per_frame
 from onet_tpu_torch.serve.tiles import infer_tiled
+from onet_tpu_torch.utils.profiling import (RING, count, counters,
+                                            percentiles, span, spans,
+                                            summarize)
+
+# spans under the step lock, its wait left out: a request's device time
+UNDER_LOCK = ("session.step", "session.device_wait", "session.labels_out",
+              "session.tiled")
 
 
 class ServingSession:
@@ -63,16 +82,36 @@ class ServingSession:
         self.requests = 0
         self.frames = 0
         self.errors = 0
-        self._lat_device_ms: list = []
-        self._lat_total_ms: list = []
+        # the request ids of this session's calls, to find its spans
+        self._served = collections.deque(maxlen=RING)
         self.started = time.time()
 
     # -- device work --------------------------------------------------------
 
-    def _run(self, xb: torch.Tensor) -> np.ndarray:
-        with self._lock, torch.inference_mode():
-            _, m = self.step(self.model_arg, xb)
-            return m.cpu().numpy()        # waits for the device
+    def _copy_in(self, a: np.ndarray) -> torch.Tensor:
+        with span("session.copy_in"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _acquire(self):
+        with span("session.lock_wait"):
+            self._lock.acquire()
+
+    def _run(self, xb: torch.Tensor):
+        """(host labels, ms under the step lock without its wait)."""
+        self._acquire()
+        try:
+            with torch.inference_mode():
+                with span("session.step") as st:
+                    _, m = self.step(self.model_arg, xb)
+                with span("session.device_wait") as dw:
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                with span("session.labels_out") as lo:
+                    labels = m.cpu().numpy()
+        finally:
+            self._lock.release()
+        count("steps")
+        return labels, st.ms + dw.ms + lo.ms
 
     def warmup(self, hw=None):
         """Run the step once (kernel builds, cuDNN plans) so the first
@@ -87,22 +126,27 @@ class ServingSession:
         self.warm = True
 
     def segment(self, imgs: np.ndarray, normalize: bool = False):
-        """[B, H, W, C] float -> ([B, H, W] uint8 masks, device ms)."""
-        n = imgs.shape[0]
-        pad = (-n) % self.batch
-        if pad:
-            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
-        masks, dev_ms = [], 0.0
-        for i in range(0, imgs.shape[0], self.batch):
-            xb = torch.from_numpy(
-                np.ascontiguousarray(imgs[i:i + self.batch])).to(self.device)
-            if normalize:
-                xb = minmax_per_frame(xb)
-            t0 = time.perf_counter()
-            m = self._run(xb)
-            dev_ms += (time.perf_counter() - t0) * 1e3
-            masks.append(m.astype(np.uint8))
-        return np.concatenate(masks)[:n], dev_ms
+        """[B, H, W, C] float -> ([B, H, W] uint8 masks, device ms): the
+        time under the step lock, its wait left out."""
+        with span("session.segment") as call:
+            self._served.append(call.request)
+            n = imgs.shape[0]
+            pad = (-n) % self.batch
+            if pad:
+                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad,
+                                                       axis=0)])
+                count("padded_frames", pad)
+            masks, dev_ms = [], 0.0
+            for i in range(0, imgs.shape[0], self.batch):
+                xb = self._copy_in(imgs[i:i + self.batch])
+                if normalize:
+                    with span("session.normalize"):
+                        xb = minmax_per_frame(xb)
+                m, ms = self._run(xb)
+                dev_ms += ms
+                with span("session.cast"):
+                    masks.append(m.astype(np.uint8))
+            return np.concatenate(masks)[:n], dev_ms
 
     def segment_scenes(self, imgs: np.ndarray, normalize: bool = False):
         """[B, H, W, C] scenes -> ([B, H, W] uint8 masks, device ms): each
@@ -111,31 +155,33 @@ class ServingSession:
         if not self.tile:
             raise ValueError("daemon started without --tile; "
                              "?scene=1 unavailable")
-        out, dev_ms = [], 0.0
-        for scene in imgs:
-            x = torch.from_numpy(np.ascontiguousarray(scene)).to(self.device)
-            if normalize:
-                x = minmax_per_frame(x[None])[0]
-            t0 = time.perf_counter()
-            with self._lock:
-                m = infer_tiled(self.step, self.model_arg, x, tile=self.tile,
-                                halo=self.halo, batch=self.batch,
-                                device=self.device)
-            dev_ms += (time.perf_counter() - t0) * 1e3
-            out.append(m[None].astype(np.uint8))
-        return np.concatenate(out), dev_ms
+        with span("session.segment") as call:
+            self._served.append(call.request)
+            out, dev_ms = [], 0.0
+            for scene in imgs:
+                x = self._copy_in(scene)
+                if normalize:
+                    with span("session.normalize"):
+                        x = minmax_per_frame(x[None])[0]
+                self._acquire()
+                try:
+                    with span("session.tiled") as sp:
+                        m = infer_tiled(self.step, self.model_arg, x,
+                                        tile=self.tile, halo=self.halo,
+                                        batch=self.batch, device=self.device)
+                finally:
+                    self._lock.release()
+                dev_ms += sp.ms
+                with span("session.cast"):
+                    out.append(m[None].astype(np.uint8))
+            return np.concatenate(out), dev_ms
 
     # -- bookkeeping ---------------------------------------------------------
 
-    def record(self, frames: int, dev_ms: float, total_ms: float):
+    def record(self, frames: int):
         with self._stats_lock:
             self.requests += 1
             self.frames += frames
-            self._lat_device_ms.append(dev_ms)
-            self._lat_total_ms.append(total_ms)
-            if len(self._lat_total_ms) > 4096:     # bounded memory
-                self._lat_device_ms = self._lat_device_ms[-2048:]
-                self._lat_total_ms = self._lat_total_ms[-2048:]
 
     def record_error(self):
         with self._stats_lock:
@@ -150,20 +196,32 @@ class ServingSession:
                 "uptime_s": round(time.time() - self.started, 1)}
 
     def stats(self) -> dict:
+        """Counts; ``device_ms`` (time under the step lock, its wait left
+        out) and ``total_ms`` (``http.request``) over the session's
+        answered requests in the span ring, ``spans_ms`` over all its
+        spans there; ``steps`` and ``padded_frames`` since the process
+        started."""
+        mine = set(self._served)
+        recs = [r for r in spans() if r.request in mine]
+        dev, total = {}, {}
+        for r in recs:
+            if r.name in UNDER_LOCK:
+                dev[r.request] = dev.get(r.request, 0.0) + r.ms
+            elif r.name == "http.request":
+                total[r.request] = r.ms
+        answered = {r.request for r in recs if r.name == "http.write"}
+        c = counters()
         with self._stats_lock:
-            dev = np.asarray(self._lat_device_ms, np.float64)
-            tot = np.asarray(self._lat_total_ms, np.float64)
-
-            def pct(a):
-                if a.size == 0:
-                    return None
-                return {"p50": round(float(np.percentile(a, 50)), 2),
-                        "p95": round(float(np.percentile(a, 95)), 2),
-                        "max": round(float(a.max()), 2)}
-
-            return {"requests": self.requests, "frames": self.frames,
-                    "errors": self.errors,
-                    "device_ms": pct(dev), "total_ms": pct(tot)}
+            out = {"requests": self.requests, "frames": self.frames,
+                   "errors": self.errors}
+        out.update(
+            device_ms=percentiles(
+                [dev.get(q, 0.0) for q in total if q in answered], 2),
+            total_ms=percentiles(
+                [ms for q, ms in total.items() if q in answered], 2),
+            spans_ms=summarize(recs), steps=c.get("steps", 0),
+            padded_frames=c.get("padded_frames", 0))
+        return out
 
 
 def canonicalize(arr: np.ndarray, in_channels: int) -> np.ndarray:
@@ -223,31 +281,34 @@ def make_handler(session: ServingSession):
             q = parse_qs(url.query)
             normalize = q.get("normalize", ["0"])[0] not in ("0", "")
             scene = q.get("scene", ["0"])[0] not in ("0", "")
-            t_req = time.perf_counter()
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-                payload = io.BytesIO(self.rfile.read(n))
-                imgs = canonicalize(np.load(payload, allow_pickle=False),
-                                    session.in_channels)
-                if scene:
-                    masks, dev_ms = session.segment_scenes(imgs, normalize)
-                else:
-                    masks, dev_ms = session.segment(imgs, normalize)
-            except Exception as e:  # noqa: BLE001 — surfaced to the client
-                session.record_error()
-                self._json(400, {"error": f"{type(e).__name__}: {e}"})
-                return
-            total_ms = (time.perf_counter() - t_req) * 1e3
-            session.record(masks.shape[0], dev_ms, total_ms)
-            body = _npy_bytes(masks)
-            self.send_response(200)
-            self.send_header("Content-Type", "application/x-npy")
-            self.send_header("Content-Length", str(len(body)))
-            self.send_header("X-Onet-Frames", str(masks.shape[0]))
-            self.send_header("X-Onet-Device-Ms", f"{dev_ms:.2f}")
-            self.send_header("X-Onet-Mode", session.mode)
-            self.end_headers()
-            self.wfile.write(body)
+            with span("http.request"):
+                try:
+                    with span("http.read"):
+                        n = int(self.headers.get("Content-Length", 0))
+                        payload = io.BytesIO(self.rfile.read(n))
+                        imgs = canonicalize(
+                            np.load(payload, allow_pickle=False),
+                            session.in_channels)
+                    if scene:
+                        masks, dev_ms = session.segment_scenes(imgs,
+                                                               normalize)
+                    else:
+                        masks, dev_ms = session.segment(imgs, normalize)
+                except Exception as e:  # noqa: BLE001 — to the client
+                    session.record_error()
+                    self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                session.record(masks.shape[0])
+                with span("http.write"):
+                    body = _npy_bytes(masks)
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/x-npy")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.send_header("X-Onet-Frames", str(masks.shape[0]))
+                    self.send_header("X-Onet-Device-Ms", f"{dev_ms:.2f}")
+                    self.send_header("X-Onet-Mode", session.mode)
+                    self.end_headers()
+                    self.wfile.write(body)
 
     return Handler
 

@@ -16,19 +16,34 @@ utils/summary.py). Here, as in the JAX package:
   This is the per-op breakout of eager work: on the card the rows are the
   device's kernels and copies; a trace without device records (a CPU run)
   gives the outermost host operators instead, in category "host".
+* ``span`` — the program's own timed ranges: name, start and end
+  (``time.perf_counter_ns``), the enclosing span of the same thread, and
+  a request id (the outermost span's id, shared by every span inside
+  it). Records go into one bounded ring (``RING``); ``count`` keeps
+  named counters beside it. While a ``torch.profiler`` session runs,
+  each record carries its ordinal (``profiled_spans`` returns the latest
+  session's) and, on a thread the profiler records, the span also opens
+  a ``record_function`` range, a ``user_annotation`` event of the
+  Chrome trace on the profiler's clock (``trace_us`` maps a record's
+  times onto it).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import glob
+import itertools
 import json
 import os
 import re
+import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from onet_tpu_torch.core.device import resolve_device
 
@@ -89,18 +104,184 @@ class StepTimer:
         return self.start.elapsed_time(end) / 1e3 / max(steps, 1)
 
 
+RING = 16384
+
+
+class Span(NamedTuple):
+    """One closed span. ``start`` and ``end`` are ``time.perf_counter_ns``
+    readings; ``parent`` is the id of the enclosing span of its thread
+    (None at the top), ``request`` the id of the outermost one, and
+    ``session`` the ordinal of the profiler session it ran under (None
+    without one)."""
+    name: str
+    start: int
+    end: int
+    id: int
+    parent: Optional[int]
+    request: int
+    session: Optional[int]
+
+    @property
+    def ms(self) -> float:
+        return (self.end - self.start) / 1e6
+
+
+# plain tuples in Span's order; an append is atomic, so spans take no lock
+_ring: collections.deque = collections.deque(maxlen=RING)
+_lock = threading.Lock()          # the counters and the sessions
+_counters: collections.Counter = collections.Counter()
+_ids = itertools.count(1)
+_open = threading.local()         # each thread's stack of open spans
+_session = 0                      # ordinal of the latest profiler session
+_profiling = False                # whether the latest span saw one running
+_offset = 0                       # its wall clock less perf_counter, ns
+_thread_recorded = torch._C._autograd._profiler_enabled
+
+
+def _profiler_session() -> Optional[int]:
+    """The ordinal of the running profiler session, or None. The
+    profiler's process-wide flag says whether one runs; a new session
+    begins where a span finds it on after a span found it off (``trace``
+    also begins one), so two profiled stretches with no span between
+    them count as one."""
+    global _session, _profiling, _offset
+    if not getattr(_autograd_profiler, "_is_profiler_enabled", False):
+        _profiling = False
+        return None
+    if not _profiling:
+        with _lock:
+            if not _profiling:
+                _session += 1
+                _offset = time.time_ns() - time.perf_counter_ns()
+                _profiling = True
+    return _session
+
+
+class span:
+    """``with span("session.step"): ...`` records the block's times into
+    the ring when it closes. With the profiler off it costs a few clock
+    and flag reads and one append. With it on, on a thread the profiler
+    records (the one that started it), the block is also a
+    ``record_function`` range, opened before the record's start is read
+    and closed before its end is: the two differ at each end by what
+    opening or closing a range costs, tens of us."""
+
+    __slots__ = ("name", "start", "end", "id", "parent", "request",
+                 "session", "_range", "_stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        outer = stack[-1] if stack else None
+        self.parent = outer.id if outer else None
+        self.request = outer.request if outer else self.id
+        self.session = _profiler_session()
+        self._range = None
+        if self.session is not None and _thread_recorded():
+            self._range = _autograd_profiler.record_function(self.name)
+            self._range.__enter__()
+        stack.append(self)
+        self._stack = stack
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self.end = time.perf_counter_ns()
+        self._stack.pop()
+        _ring.append((self.name, self.start, self.end, self.id, self.parent,
+                      self.request, self.session))
+        return False
+
+    @property
+    def ms(self) -> float:
+        return (self.end - self.start) / 1e6
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (kept as long as the process)."""
+    with _lock:
+        _counters[name] += n
+
+
+def counters() -> Dict[str, int]:
+    with _lock:
+        return dict(_counters)
+
+
+def mark() -> int:
+    """An id below that of every span opened later: ``spans(since=...)``
+    then returns only those."""
+    return next(_ids)
+
+
+def spans(since: int = 0) -> List[Span]:
+    """The ring's records in the order they closed; with ``since`` (a
+    ``mark()``) only those of spans opened after it."""
+    while True:
+        try:
+            out = list(_ring)
+            break
+        except RuntimeError:    # a span closed while the ring was copied
+            continue
+    return [Span._make(r) for r in out if r[3] > since]
+
+
+def profiled_spans() -> List[Span]:
+    """The records of the latest profiler session; empty before one."""
+    s = _session
+    return [r for r in spans() if r.session == s] if s else []
+
+
+def trace_us(t_ns: int, base_ns: int) -> float:
+    """A record's time (``perf_counter`` ns) on the ``ts`` axis of the
+    latest profiler session's Chrome trace, in us. The profiler stamps
+    events with the wall clock and the file's ``ts`` is us past its
+    ``baseTimeNanoseconds`` (``base_ns``); the wall clock less
+    ``perf_counter`` was read when the session's first span opened."""
+    return (t_ns + _offset - base_ns) / 1e3
+
+
+def percentiles(values, digits: int = 3) -> Optional[Dict[str, float]]:
+    """{p50, p95, max} of ``values``, rounded; None when there are none."""
+    if not len(values):
+        return None
+    a = np.asarray(values, np.float64)
+    return {"p50": round(float(np.percentile(a, 50)), digits),
+            "p95": round(float(np.percentile(a, 95)), digits),
+            "max": round(float(a.max()), digits)}
+
+
+def summarize(records) -> Dict[str, Dict[str, float]]:
+    """{name: {p50, p95, max, count}} of the records' durations, ms."""
+    by_name: Dict[str, list] = {}
+    for r in records:
+        by_name.setdefault(r.name, []).append(r.ms)
+    return {name: {**percentiles(ms), "count": len(ms)}
+            for name, ms in sorted(by_name.items())}
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a ``torch.profiler`` trace (host operators, and the
     device's kernels where a card is present) into ``logdir/trace.json``
-    (Chrome trace format)."""
+    (Chrome trace format). It begins a new profiler session for the
+    spans (``profiled_spans``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    global _profiling
     os.makedirs(logdir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts, with_flops=True)
+    prof = profile(activities=acts)
+    _profiling = False
     prof.__enter__()
     try:
         yield logdir
@@ -154,15 +335,11 @@ def _outermost(events: List[dict]) -> List[dict]:
 def hlo_breakdown(logdir_or_trace: str, top: int = 20) -> List[Dict[str, Any]]:
     """Summarize a captured trace: total ms per kernel name, descending.
 
-    Returns a list of dicts with the JAX package's keys ``name``,
-    ``category``, ``total_ms``, ``occurrences``, ``gflops_per_s``,
-    ``bw_gib_per_s``, ``bound_by``. Device kernels (category from
-    ``kernel_category``) and copies (``bw_gib_per_s`` from the record's
-    measured bandwidth) where the trace has them, else the outermost host
-    operators (category "host", ``gflops_per_s`` from the profiler's FLOP
-    count where it has one). What the profiler does not record is 0 or
-    "": it gives no FLOPs or bytes per kernel, so nothing says what bounds
-    one. Empty list when there is no trace."""
+    Returns a list of dicts with the keys ``name``, ``category``,
+    ``total_ms`` and ``occurrences``: device kernels and copies (category
+    from ``kernel_category``) where the trace has them, else the
+    outermost host operators (category "host"). Empty list when there is
+    no trace."""
     path = logdir_or_trace
     if os.path.isdir(path):
         path = os.path.join(path, TRACE_FILE)
@@ -179,27 +356,14 @@ def hlo_breakdown(logdir_or_trace: str, top: int = 20) -> List[Dict[str, Any]]:
     rows: Dict[str, Dict[str, Any]] = {}
     for ev in device or _outermost(
             [e for e in events if e.get("cat") == "cpu_op"]):
-        args = ev.get("args", {})
         r = rows.setdefault(ev["name"], {
             "name": ev["name"],
             "category": (kernel_category(ev["name"], own) if device
                          else "host"),
-            "total_ms": 0.0, "occurrences": 0, "_flops": 0.0, "_gbs": []})
+            "total_ms": 0.0, "occurrences": 0})
         r["total_ms"] += ev["dur"] / 1e3
         r["occurrences"] += 1
-        r["_flops"] += float(args.get("flops", 0) or 0)
-        if "memory bandwidth (GB/s)" in args:
-            r["_gbs"].append(float(args["memory bandwidth (GB/s)"]))
-    out = []
-    for r in sorted(rows.values(), key=lambda r: -r["total_ms"])[:top]:
-        flops, gbs = r.pop("_flops"), r.pop("_gbs")
-        r["gflops_per_s"] = (flops / 1e9 / (r["total_ms"] / 1e3)
-                             if flops and r["total_ms"] else 0.0)
-        r["bw_gib_per_s"] = (sum(gbs) / len(gbs) * 1e9 / 2 ** 30
-                             if gbs else 0.0)
-        r["bound_by"] = ""
-        out.append(r)
-    return out
+    return sorted(rows.values(), key=lambda r: -r["total_ms"])[:top]
 
 
 def category_breakdown(logdir_or_trace: str) -> Dict[str, float]:

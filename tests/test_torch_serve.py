@@ -69,6 +69,40 @@ def test_post_segment_matches_direct_infer(served):
     assert stats["device_ms"]["p50"] > 0
 
 
+def test_stats_reads_the_spans(served):
+    """/stats keeps its five keys and adds each span's percentiles and the
+    counters; a request's X-Onet-Device-Ms is its time under the step
+    lock (step, device wait, labels out), the lock's wait left out."""
+    from onet_tpu_torch.utils import profiling
+
+    sess, _, url = served
+    imgs = np.random.default_rng(2).uniform(0, 1, (4, 32, 32, 1)).astype(
+        np.float32)
+    since = profiling.mark()
+    _, headers = _post(url + "/segment", imgs)
+    stats = _get_json(url + "/stats")
+    assert {"requests", "frames", "errors", "device_ms", "total_ms",
+            "spans_ms", "steps", "padded_frames"} <= set(stats)
+    for name in ("http.request", "http.read", "http.write",
+                 "session.segment", "session.copy_in", "session.lock_wait",
+                 "session.step", "session.device_wait", "session.labels_out",
+                 "session.cast"):
+        row = stats["spans_ms"][name]
+        assert set(row) == {"p50", "p95", "max", "count"} and row["count"] >= 1
+    assert stats["steps"] >= 2 and stats["padded_frames"] >= 2
+    recs = profiling.spans(since)
+    req = [r for r in recs if r.name == "http.request"]
+    assert len(req) == 1
+    mine = [r for r in recs if r.request == req[0].id]
+    assert {r.name for r in mine} >= {"http.read", "http.write",
+                                      "session.segment"}
+    under = sum(r.ms for r in mine if r.name in (
+        "session.step", "session.device_wait", "session.labels_out"))
+    assert float(headers["X-Onet-Device-Ms"]) == pytest.approx(under,
+                                                               abs=0.006)
+    assert 0 < stats["device_ms"]["p50"] <= stats["total_ms"]["max"]
+
+
 def test_normalize_query_applies_minmax(served):
     sess, folded, url = served
     raw = np.random.default_rng(1).uniform(3, 9, (2, 32, 32)).astype(

@@ -176,8 +176,8 @@ def test_runtime_layer_summary_matches_jax(weights, shape):
 
 
 def test_profiling_rows_carry_jax_keys(tmp_path):
-    keys = {"name", "category", "total_ms", "occurrences", "gflops_per_s",
-            "bw_gib_per_s", "bound_by"}
+    # the JAX package's keys that a reader uses (chip_smoke.py)
+    keys = {"name", "category", "total_ms", "occurrences"}
     x = torch.randn(64, 64)
     f = lambda v: torch.tanh(v) @ torch.tanh(v).T   # noqa: E731
     timer = TP.StepTimer("cpu")
