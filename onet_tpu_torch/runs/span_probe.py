@@ -14,7 +14,8 @@ profiler's Chrome trace (``trace_us``).
   ``utils/profiling.trace``. For each call after the first, every span's
   record on the trace's ``ts`` axis and its distance from its
   ``user_annotation`` range (the larger of the starts' and the ends'
-  distances, us).
+  distances, us); and the session's counters (``steps``,
+  ``labels_staged``, ``staging_allocs``) after the calls.
 
 Needs a card: without one it exits. Prints one JSON line and writes it,
 with the traced calls' spans, to ``--out``/span_probe.json, beside the
@@ -115,7 +116,10 @@ def serving(batches: int, logdir: str) -> dict:
                              abs(b - e["ts"] - e["dur"])), 1)})
         calls.append(rows)
     gaps = [r["range_gap_us"] for c in calls for r in c]
+    c = P.counters()
     return {"shape": [batch, hw, hw, 1], "base": base, "calls": calls,
+            "counters": {k: c.get(k, 0) for k in (
+                "steps", "labels_staged", "staging_allocs")},
             "ranges_found": all(g is not None for g in gaps),
             "max_range_gap_us": max(g for g in gaps if g is not None),
             "trace_base_ns": base_ns}

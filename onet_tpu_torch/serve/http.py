@@ -20,14 +20,24 @@ one padded); scenes run in batches of ``tile + 2*halo`` windows, one shape
 too. The device step is serialized by a lock; the HTTP layer is a
 ``ThreadingHTTPServer`` so health and stats probes never wait behind it.
 
+A batch's labels leave the card as uint8: the step's labels are narrowed
+on the device, copied into one host staging buffer that the session owns
+(pinned on a CUDA device, so the copy runs at DMA speed; made on first use
+and grown only when a batch needs more bytes) and from there into the
+call's masks, which are allocated once a call and never alias the buffer.
+
 The session and the handler time their parts as spans
 (``utils/profiling.py``), one set a batch: ``session.copy_in`` (frames to
 the device), ``session.normalize``, ``session.lock_wait`` (acquiring the
-step lock), ``session.step`` (launching the step), ``session.device_wait``
-(until the step is done), ``session.labels_out`` (labels to the host),
-``session.cast`` (to uint8), under ``session.segment`` a call; a scene's
-``session.tiled``; ``http.read``, ``http.write`` under ``http.request``.
-Counters: ``steps``, ``padded_frames`` (frames added to fill a batch).
+step lock), ``session.step`` (launching the step), ``session.cast``
+(launching the labels' narrowing to uint8), ``session.device_wait``
+(until the step is done), ``session.labels_out`` (labels through the
+staging buffer into the call's masks), under ``session.segment`` a call;
+a scene's ``session.tiled`` and ``session.cast``; ``http.read``,
+``http.write`` under ``http.request``. Counters: ``steps``,
+``padded_frames`` (frames added to fill a batch), ``labels_staged``
+(batches whose labels came back through the staging buffer),
+``staging_allocs`` (times the buffer was made or grown).
 """
 
 from __future__ import annotations
@@ -51,8 +61,8 @@ from onet_tpu_torch.utils.profiling import (RING, count, counters,
                                             summarize)
 
 # spans under the step lock, its wait left out: a request's device time
-UNDER_LOCK = ("session.step", "session.device_wait", "session.labels_out",
-              "session.tiled")
+UNDER_LOCK = ("session.step", "session.cast", "session.device_wait",
+              "session.labels_out", "session.tiled")
 
 
 class ServingSession:
@@ -84,6 +94,7 @@ class ServingSession:
         self.errors = 0
         # the request ids of this session's calls, to find its spans
         self._served = collections.deque(maxlen=RING)
+        self._staging = None              # uint8 host buffer of the labels
         self.started = time.time()
 
     # -- device work --------------------------------------------------------
@@ -96,22 +107,42 @@ class ServingSession:
         with span("session.lock_wait"):
             self._lock.acquire()
 
-    def _run(self, xb: torch.Tensor):
-        """(host labels, ms under the step lock without its wait)."""
+    def _staged(self, nbytes: int) -> torch.Tensor:
+        """The first ``nbytes`` of the staging buffer, which is made or
+        grown first where it is too small. Called under the step lock."""
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = torch.empty(
+                nbytes, dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+            count("staging_allocs")
+        return self._staging[:nbytes]
+
+    def _run(self, xb: torch.Tensor, out=None):
+        """ms under the step lock, its wait left out. The batch's labels
+        come back as uint8; the first ``len(out)`` frames' go into ``out``
+        (a [k, H, W] uint8 array)."""
         self._acquire()
         try:
             with torch.inference_mode():
                 with span("session.step") as st:
                     _, m = self.step(self.model_arg, xb)
+                with span("session.cast") as ca:
+                    m = m.to(torch.uint8)
                 with span("session.device_wait") as dw:
                     if self.device.type == "cuda":
                         torch.cuda.current_stream(self.device).synchronize()
                 with span("session.labels_out") as lo:
-                    labels = m.cpu().numpy()
+                    staged = self._staged(m.numel()).view(m.shape)
+                    staged.copy_(m, non_blocking=True)
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                    if out is not None:
+                        np.copyto(out, staged[:len(out)].numpy())
         finally:
             self._lock.release()
         count("steps")
-        return labels, st.ms + dw.ms + lo.ms
+        count("labels_staged")
+        return st.ms + ca.ms + dw.ms + lo.ms
 
     def warmup(self, hw=None):
         """Run the step once (kernel builds, cuDNN plans) so the first
@@ -127,7 +158,9 @@ class ServingSession:
 
     def segment(self, imgs: np.ndarray, normalize: bool = False):
         """[B, H, W, C] float -> ([B, H, W] uint8 masks, device ms): the
-        time under the step lock, its wait left out."""
+        time under the step lock, its wait left out. Each batch writes its
+        real frames' labels into the masks; a padded frame's are not
+        copied."""
         with span("session.segment") as call:
             self._served.append(call.request)
             n = imgs.shape[0]
@@ -136,17 +169,15 @@ class ServingSession:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad,
                                                        axis=0)])
                 count("padded_frames", pad)
-            masks, dev_ms = [], 0.0
+            masks = np.empty((n,) + imgs.shape[1:3], np.uint8)
+            dev_ms = 0.0
             for i in range(0, imgs.shape[0], self.batch):
                 xb = self._copy_in(imgs[i:i + self.batch])
                 if normalize:
                     with span("session.normalize"):
                         xb = minmax_per_frame(xb)
-                m, ms = self._run(xb)
-                dev_ms += ms
-                with span("session.cast"):
-                    masks.append(m.astype(np.uint8))
-            return np.concatenate(masks)[:n], dev_ms
+                dev_ms += self._run(xb, masks[i:i + self.batch])
+            return masks, dev_ms
 
     def segment_scenes(self, imgs: np.ndarray, normalize: bool = False):
         """[B, H, W, C] scenes -> ([B, H, W] uint8 masks, device ms): each
@@ -169,11 +200,11 @@ class ServingSession:
                         m = infer_tiled(self.step, self.model_arg, x,
                                         tile=self.tile, halo=self.halo,
                                         batch=self.batch, device=self.device)
+                    with span("session.cast") as ca:
+                        out.append(m[None].astype(np.uint8))
                 finally:
                     self._lock.release()
-                dev_ms += sp.ms
-                with span("session.cast"):
-                    out.append(m[None].astype(np.uint8))
+                dev_ms += sp.ms + ca.ms
             return np.concatenate(out), dev_ms
 
     # -- bookkeeping ---------------------------------------------------------
@@ -199,8 +230,8 @@ class ServingSession:
         """Counts; ``device_ms`` (time under the step lock, its wait left
         out) and ``total_ms`` (``http.request``) over the session's
         answered requests in the span ring, ``spans_ms`` over all its
-        spans there; ``steps`` and ``padded_frames`` since the process
-        started."""
+        spans there; ``steps``, ``padded_frames``, ``labels_staged`` and
+        ``staging_allocs`` since the process started."""
         mine = set(self._served)
         recs = [r for r in spans() if r.request in mine]
         dev, total = {}, {}
@@ -220,7 +251,9 @@ class ServingSession:
             total_ms=percentiles(
                 [ms for q, ms in total.items() if q in answered], 2),
             spans_ms=summarize(recs), steps=c.get("steps", 0),
-            padded_frames=c.get("padded_frames", 0))
+            padded_frames=c.get("padded_frames", 0),
+            labels_staged=c.get("labels_staged", 0),
+            staging_allocs=c.get("staging_allocs", 0))
         return out
 
 

@@ -586,6 +586,52 @@ def test_tiled_scene_matches_host_tiling(dev):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_session_masks_through_pinned_staging(dev, mode):
+    """The serving session at the serve cells' shape (base 64, 512^2,
+    batch 32, 40 frames: a whole batch and a padded one): its masks equal
+    the step's labels read to the host and cast there, as the session
+    read them before it narrowed them on the card; its staging buffer is
+    pinned, made once, and every batch's labels come through it."""
+    import numpy as np
+
+    from onet_tpu_torch.core.policy import BF16_COMPUTE
+    from onet_tpu_torch.models.infer import onet_infer
+    from onet_tpu_torch.serve.http import ServingSession
+    from onet_tpu_torch.utils import profiling as P
+
+    _, _, folded = _serving_model(dev, 64, 70)
+    frames = np.random.default_rng(71).uniform(
+        0, 1, (40, 512, 512, 1)).astype(np.float32)
+    if mode == "int8":
+        from onet_tpu_torch.models import quant as TQ
+        with torch.inference_mode():
+            model_arg = TQ.quantize_folded(folded, TQ.calibrate(
+                folded, torch.from_numpy(frames[:32]).to(dev)))
+        step = TQ.onet_infer_q
+    else:
+        model_arg = folded
+
+        def step(f, xb):
+            return onet_infer(f, xb, policy=BF16_COMPUTE)
+    sess = ServingSession(step, model_arg, batch=32, in_channels=1,
+                          mode=mode, device=dev)
+    before = P.counters()
+    masks, _ = sess.segment(frames)
+    after = P.counters()
+    padded = np.concatenate([frames, np.repeat(frames[-1:], 24, axis=0)])
+    with torch.inference_mode():
+        want = np.concatenate([
+            step(model_arg, torch.from_numpy(padded[i:i + 32]).to(dev))[1]
+            .cpu().numpy().astype(np.uint8) for i in (0, 32)])[:40]
+    assert masks.shape == (40, 512, 512) and masks.dtype == np.uint8
+    assert np.array_equal(masks, want)
+    assert sess._staging.is_pinned()
+    assert sess._staging.numel() == 32 * 512 * 512
+    assert after["labels_staged"] - before.get("labels_staged", 0) == 2
+    assert after["staging_allocs"] - before.get("staging_allocs", 0) == 1
+
+
 @pytest.mark.parametrize("export_on", ["cuda", "cpu"])
 def test_artifact_on_the_card_matches_live_stacked(dev, tmp_path, export_on):
     """An fp32 artifact (base 8, 64x64, symbolic batch), exported on the

@@ -72,7 +72,8 @@ def test_post_segment_matches_direct_infer(served):
 def test_stats_reads_the_spans(served):
     """/stats keeps its five keys and adds each span's percentiles and the
     counters; a request's X-Onet-Device-Ms is its time under the step
-    lock (step, device wait, labels out), the lock's wait left out."""
+    lock (step, cast, device wait, labels out), the lock's wait left
+    out."""
     from onet_tpu_torch.utils import profiling
 
     sess, _, url = served
@@ -82,7 +83,8 @@ def test_stats_reads_the_spans(served):
     _, headers = _post(url + "/segment", imgs)
     stats = _get_json(url + "/stats")
     assert {"requests", "frames", "errors", "device_ms", "total_ms",
-            "spans_ms", "steps", "padded_frames"} <= set(stats)
+            "spans_ms", "steps", "padded_frames", "labels_staged",
+            "staging_allocs"} <= set(stats)
     for name in ("http.request", "http.read", "http.write",
                  "session.segment", "session.copy_in", "session.lock_wait",
                  "session.step", "session.device_wait", "session.labels_out",
@@ -90,6 +92,8 @@ def test_stats_reads_the_spans(served):
         row = stats["spans_ms"][name]
         assert set(row) == {"p50", "p95", "max", "count"} and row["count"] >= 1
     assert stats["steps"] >= 2 and stats["padded_frames"] >= 2
+    assert stats["labels_staged"] == stats["steps"]
+    assert stats["staging_allocs"] >= 1
     recs = profiling.spans(since)
     req = [r for r in recs if r.name == "http.request"]
     assert len(req) == 1
@@ -97,7 +101,8 @@ def test_stats_reads_the_spans(served):
     assert {r.name for r in mine} >= {"http.read", "http.write",
                                       "session.segment"}
     under = sum(r.ms for r in mine if r.name in (
-        "session.step", "session.device_wait", "session.labels_out"))
+        "session.step", "session.cast", "session.device_wait",
+        "session.labels_out"))
     assert float(headers["X-Onet-Device-Ms"]) == pytest.approx(under,
                                                                abs=0.006)
     assert 0 < stats["device_ms"]["p50"] <= stats["total_ms"]["max"]

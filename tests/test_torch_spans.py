@@ -106,11 +106,66 @@ def test_one_span_of_each_name_per_batch(session, normalize):
     assert all(r.request == seg.id for r in recs)
     assert all(r.parent == seg.id for r in recs if r is not seg)
     under = sum(r.ms for r in recs if r.name in (
-        "session.step", "session.device_wait", "session.labels_out"))
+        "session.step", "session.cast", "session.device_wait",
+        "session.labels_out"))
     assert dev_ms == pytest.approx(under) and dev_ms > 0
     after = P.counters()
     assert after["steps"] - before.get("steps", 0) == 2
     assert (after["padded_frames"] - before.get("padded_frames", 0)) == 1
+
+
+@pytest.mark.parametrize("n", [6, 5])
+def test_masks_are_the_steps_labels_as_uint8(session, n):
+    """For a whole number of batches and a ragged tail: the masks are the
+    step's labels on each padded batch, cast on the host as before, with
+    the real frames' rows only, in memory of their own."""
+    sess, folded = session
+    imgs = _frames(5, n)
+    masks, _ = sess.segment(imgs)
+    padded = np.concatenate([imgs, np.repeat(imgs[-1:], (-n) % 3, axis=0)])
+    want = np.concatenate([
+        onet_infer(folded, torch.from_numpy(padded[i:i + 3]),
+                   policy=DEFAULT)[1].numpy().astype(np.uint8)
+        for i in range(0, len(padded), 3)])[:n]
+    assert masks.shape == (n, 32, 32) and masks.dtype == np.uint8
+    assert np.array_equal(masks, want)
+    assert not np.shares_memory(masks, sess._staging.numpy())
+
+
+def test_a_later_call_leaves_earlier_masks(session):
+    sess, _ = session
+    first, _ = sess.segment(_frames(6))
+    kept = first.copy()
+    second, _ = sess.segment(_frames(7))
+    assert not np.array_equal(second, kept)
+    assert np.array_equal(first, kept)
+
+
+def test_staging_is_made_once_a_shape_and_grown_once(session):
+    """A fresh session makes its staging buffer on its first batch, keeps
+    it over calls of that shape and of a smaller one, and grows it once
+    for a larger frame; every batch's labels come through it."""
+    _, folded = session
+    sess = ServingSession(lambda f, x: onet_infer(f, x, policy=DEFAULT),
+                          folded, batch=2, in_channels=1, mode="fp32",
+                          device="cpu")
+    before = P.counters()
+
+    def delta(name):
+        return P.counters().get(name, 0) - before.get(name, 0)
+
+    for _ in range(2):
+        sess.segment(_frames(8, n=3))
+    assert (delta("staging_allocs"), delta("labels_staged")) == (1, 4)
+    sess.segment(_frames(8, n=1))
+    assert delta("staging_allocs") == 1
+    big = np.random.default_rng(9).uniform(0, 1, (2, 48, 48, 1)).astype(
+        np.float32)
+    masks, _ = sess.segment(big)
+    assert masks.shape == (2, 48, 48)
+    assert (delta("staging_allocs"), delta("labels_staged")) == (2, 6)
+    assert delta("steps") == delta("labels_staged")
+    assert sess._staging.numel() == 2 * 48 * 48
 
 
 def test_masks_equal_with_and_without_profiler(session, tmp_path):
