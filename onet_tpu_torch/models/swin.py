@@ -32,6 +32,12 @@ CDF of a uniform draw here: the same law, other numbers), then moved to
 ``device`` (default: the card; raises without one). The relative-position
 index and the shift masks are built with numpy once per geometry and kept
 on the device they are used on.
+
+Each window attention (the roll, the partition, the products, the bias and
+mask, the softmax and the reverse) is the span ``swin.window_attention``
+and each LayerNorm the span ``layer_norm`` (``utils/profiling.py``); the
+counters ``swin.windows`` and ``swin.shifted_windows`` add the windows a
+forward attends, images x windows.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from onet_tpu_torch.core.device import resolve_device
 from onet_tpu_torch.core.policy import Policy, DEFAULT
 from onet_tpu_torch.models.onet import stateless_onet_forward
 from onet_tpu_torch.models.unet import tree_map
+from onet_tpu_torch.utils.profiling import count, span
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +88,13 @@ def _ln_init(dim, dtype=torch.float32):
 
 
 def _layer_norm(x, p, eps=1e-5):
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["g"].float() + p["b"].float()
-    return y.to(x.dtype)
+    with span("layer_norm"):
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["g"].float() + p["b"].float()
+        return y.to(x.dtype)
 
 
 def _dense(x, p, policy: Policy):
@@ -193,6 +201,17 @@ def _attention(q, k, v, policy: Policy, bias=None):
 
 
 def _window_attention(p, x, *, heads, window, shift, policy: Policy):
+    n, h, w, _ = x.shape
+    windows = n * (h // window) * (w // window)
+    count("swin.windows", windows)
+    if shift:
+        count("swin.shifted_windows", windows)
+    with span("swin.window_attention"):
+        return _attend(p, x, heads=heads, window=window, shift=shift,
+                       policy=policy)
+
+
+def _attend(p, x, *, heads, window, shift, policy: Policy):
     n, h, w, d = x.shape
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))

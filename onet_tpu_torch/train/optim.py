@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from onet_tpu_torch.models.unet import tree_leaves, tree_map
+from onet_tpu_torch.models.unet import tree_leaves, tree_map, tree_unflatten
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -33,22 +33,36 @@ def _device(tree):
 def adam_update(grads, opt_state, lr):
     """One Adam step: updates -lr * mu_hat / (sqrt(nu_hat) + eps), in the
     order of optax's arithmetic. ``opt_state`` is updated in place (and
-    returned)."""
+    returned).
+
+    Each line of the arithmetic is one ``torch._foreach_*`` call over all
+    leaves (a few launches, where one op a leaf made thousands), and the
+    bias corrections are formed on the state's device, so the update never
+    waits for the device: the host launches it while the backward pass
+    still runs."""
     with torch.no_grad():
         count = opt_state["count"]
         count.add_(1)
         c = count.to(torch.float32)
-        bc1 = 1 - torch.tensor(B1, dtype=torch.float32,
-                               device=c.device) ** c
-        bc2 = 1 - torch.tensor(B2, dtype=torch.float32,
-                               device=c.device) ** c
-
-        def one(g, m, v):
-            m.mul_(B1).add_((1 - B1) * g)      # (1-b1) g + b1 m
-            v.mul_(B2).add_((1 - B2) * g.square())
-            return -lr * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
-
-        updates = tree_map(one, grads, opt_state["mu"], opt_state["nu"])
+        bc1 = 1 - torch.full_like(c, B1) ** c
+        bc2 = 1 - torch.full_like(c, B2) ** c
+        g = tree_leaves(grads)
+        m, v = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+        torch._foreach_mul_(m, B1)                 # (1-b1) g + b1 m
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - B1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - B2)
+        torch._foreach_mul_(v, B2)
+        torch._foreach_add_(v, g2)
+        del g2
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, EPS)
+        out = torch._foreach_div(m, bc1)
+        torch._foreach_div_(out, den)
+        del den
+        torch._foreach_mul_(out, -lr)
+        updates = tree_unflatten(grads, out)
     return updates, opt_state
 
 

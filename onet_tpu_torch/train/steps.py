@@ -118,7 +118,8 @@ def with_adam(loss_and_grads, policy: Policy):
         with policy.precision():
             updates, opt_state = adam_update(grads, opt_state, lr)
             with torch.no_grad():
-                tree_map(lambda t, u: t.add_(u), params, updates)
+                torch._foreach_add_(tree_leaves(params),
+                                    tree_leaves(updates))
         return params, new_state, opt_state, value
 
     train_step.loss_and_grads = loss_and_grads

@@ -859,3 +859,41 @@ def test_conv_i8_two_ctas_an_sm(dev):
     for convt in (False, True):
         for ck in (32, 64, 128):
             assert CI.occupancy(ck, convt) == 2, (ck, convt)
+
+
+def test_adam_update_waits_for_nothing_and_keeps_its_arithmetic(dev):
+    """Adam on the card makes no synchronizing call (the host launches it
+    while the backward pass runs), and its updates and state equal, bit
+    for bit, each leaf's ops taken one after the other."""
+    from onet_tpu_torch.models.unet import tree_leaves, tree_map
+    from onet_tpu_torch.train.optim import B1, B2, EPS, adam_init, adam_update
+
+    g = torch.Generator().manual_seed(23)
+    params = {"a": {"w": torch.randn(96, 288, generator=g),
+                    "b": torch.randn(288, generator=g)},
+              "l": [torch.randn(169, 3, generator=g), torch.randn(7, generator=g)]}
+    params = tree_map(lambda t: t.to(dev), params)
+    opt = adam_init(params)
+    mu, nu = tree_map(torch.zeros_like, params), tree_map(torch.zeros_like, params)
+    for t in range(1, 4):
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=g).to(dev)
+                         * 10.0 ** t, params)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            upd, opt = adam_update(grads, opt, 5e-6)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for gl, m, v, u in zip(tree_leaves(grads), tree_leaves(mu),
+                               tree_leaves(nu), tree_leaves(upd)):
+            m.mul_(B1).add_((1 - B1) * gl)
+            v.mul_(B2).add_((1 - B2) * gl.square())
+            c = torch.tensor(float(t), device=dev)
+            bc1 = 1 - torch.tensor(B1, device=dev) ** c
+            bc2 = 1 - torch.tensor(B2, device=dev) ** c
+            assert torch.equal(u, -5e-6 * ((m / bc1)
+                                           / (torch.sqrt(v / bc2) + EPS)))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(opt["mu"]) + tree_leaves(opt["nu"]),
+                       tree_leaves(mu) + tree_leaves(nu)))
+        assert int(opt["count"]) == t
